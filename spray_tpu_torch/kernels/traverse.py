@@ -1,0 +1,288 @@
+"""Multi-domain cluster-BVH traversal: the two CUDA kernel wrappers, their
+plain PyTorch versions, and the hit-attribute recompute.
+
+Counterpart of ``spray_tpu/kernels/traverse.py``.  The TPU kernels
+(`_nearest_fused_kernel`, `_anyhit_kernel`) walk a packet of rays on lanes
+through a shared stack; the port's CUDA kernels (``csrc/traverse.cu``) give
+each ray its own thread and stack.  Both keep the same result contract:
+
+  - nearest: the min over a cluster's rows of the packed key
+        key = (bits(max(t, 0)) & ~127) | row        (INF_KEY on miss)
+    t rebuilt rounded UP to the 128-ulp quantum, a hit taken only where
+    t_up < best_t, front to back over the packet's domain list; the code
+    carried is global: dom * (Nc * C) + cid * C + row.
+  - any-hit: any t in (tmin, tmax) over the packet's domain list.
+
+Each wrapper sends a CPU tensor to the plain version and launches the CUDA
+kernel for a CUDA tensor (or raises); there is no fallback between them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import geom
+
+INF_KEY = 0x7F800000  # +inf bit pattern: beats every finite key
+# launches of each CUDA kernel by its wrapper (the plain versions never count)
+launches = {"nearest_kernel": 0, "anyhit_kernel": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def tree_depth(meta):
+    """Largest number of internal levels on a root-to-leaf path over all
+    domains of a (D, Nn, 8) meta page; the kernels' stack needs 7*depth+1."""
+    meta = np.asarray(meta)
+    depth = 0
+    for m in meta:
+        level, frontier = 0, np.array([0])
+        while frontier.size:
+            level += 1
+            ch = m[frontier].reshape(-1)
+            frontier = ch[ch >= 0]
+        depth = max(depth, level)
+    return depth
+
+
+# ---------------------------------------------------------------- plain ----
+
+def _dense_keys(o, d, tmin, hi, w_dom, c0, c1, occl):
+    """Keys (n, k*C) of rays against clusters [c0, c1) of one domain, or the
+    occlusion mask (n,) when occl.  Same arithmetic as the CUDA kernels, one
+    rounding per op."""
+    wb = w_dom[c0:c1]  # (k, 4, 3C)
+    c = wb.shape[2] // 3
+    ox, oy, oz = (o[:, j, None, None] for j in range(3))
+    dx, dy, dz = (d[:, j, None, None] for j in range(3))
+    w0, w1, w2, w3 = (wb[None, :, j] for j in range(4))  # (1, k, 3C)
+    op = ox * w0 + oy * w1 + oz * w2 + w3  # (n, k, 3C)
+    dp = dx * w0 + dy * w1 + dz * w2
+    ou, ov, ow = op[..., 0:c], op[..., c : 2 * c], op[..., 2 * c :]
+    du, dv, dw = dp[..., 0:c], dp[..., c : 2 * c], dp[..., 2 * c :]
+    dw_ok = torch.abs(dw) > 1e-20
+    t = -ow / torch.where(dw_ok, dw, torch.ones_like(dw))
+    u = ou + t * du
+    v = ov + t * dv
+    lo = tmin[:, None, None]
+    hi = hi[:, None, None]
+    tgate = ((t > lo) if occl else (t >= lo)) & (t < hi)
+    ok = dw_ok & tgate & (u >= 0) & (v >= 0) & (u + v <= 1)
+    if occl:
+        return ok.flatten(1).any(dim=1)
+    # -0.0 would bit-cast to INT_MIN and hide every real hit
+    tc = torch.where(t > 0, t, torch.zeros_like(t))
+    row = torch.arange(c, device=o.device, dtype=torch.int32)
+    key = (tc.view(torch.int32) & -128) | row
+    key = torch.where(ok, key, torch.full_like(key, INF_KEY))
+    return key.flatten(1)
+
+
+def _chunks(n_rays, nc, c, budget=1 << 24):
+    """(ray chunk, cluster chunk) sizes keeping (rays, clusters, 3C) tensors
+    near `budget` elements."""
+    rays = min(n_rays, 4096)
+    clusters = max(1, min(nc, budget // max(1, rays * 3 * c)))
+    return rays, clusters
+
+
+def _round_groups(order, r, packet, live):
+    """Ray index sets of round r, grouped by domain: [(dom, idx), ...]."""
+    dom_p = order[:, r]
+    dom_ray = dom_p.repeat_interleave(packet)
+    groups = []
+    for dom in torch.unique(dom_p[dom_p >= 0]).tolist():
+        idx = torch.nonzero((dom_ray == dom) & live).reshape(-1)
+        if idx.numel():
+            groups.append((dom, idx))
+    return groups
+
+
+def nearest_reference(order, o, d, tmin, tmax, bounds, meta, w, packet):
+    """Plain PyTorch version of `nearest_kernel`: tests every cluster of
+    every domain in each packet's list, densely (ignoring the BVH), with the
+    kernel's key arithmetic and front-to-back ``t_up < best_t`` combine.
+    Returns (t, code) of shape (N,)."""
+    del bounds, meta  # the dense version specifies the result without a BVH
+    _, nc, _, c3 = w.shape
+    c = c3 // 3
+    best_t = tmax.clone()
+    best_code = torch.full_like(tmax, -1, dtype=torch.int32)
+    live = tmax > 0
+    for r in range(order.shape[1]):
+        for dom, idx in _round_groups(order, r, packet, live):
+            nr, nk = _chunks(idx.numel(), nc, c)
+            for r0 in range(0, idx.numel(), nr):
+                ii = idx[r0 : r0 + nr]
+                oo, dd, lo, hi = o[ii], d[ii], tmin[ii], best_t[ii]
+                kbest = torch.full_like(ii, INF_KEY, dtype=torch.int32)
+                cbest = torch.zeros_like(ii, dtype=torch.int32)
+                for c0 in range(0, nc, nk):
+                    key = _dense_keys(oo, dd, lo, hi, w[dom], c0, c0 + nk, False)
+                    kmin, arg = key.min(dim=1)  # first minimum: lowest cluster
+                    better = kmin < kbest
+                    kbest = torch.where(better, kmin, kbest)
+                    cbest = torch.where(better, (c0 + arg // c).to(torch.int32), cbest)
+                t_up = ((kbest & -128) + 128).view(torch.float32)
+                improved = (kbest != INF_KEY) & (t_up < hi)
+                code = (dom * nc + cbest) * c + (kbest & 127)
+                best_t[ii] = torch.where(improved, t_up, hi)
+                best_code[ii] = torch.where(improved, code, best_code[ii])
+    return best_t, best_code
+
+
+def anyhit_reference(order, o, d, tmin, tmax, bounds, meta, w, packet):
+    """Plain PyTorch version of `anyhit_kernel`: any hit with t in
+    (tmin, tmax) against every cluster of every listed domain.  Returns
+    occ (N,) int32."""
+    del bounds, meta
+    _, nc, _, c3 = w.shape
+    c = c3 // 3
+    occ = torch.zeros_like(tmax, dtype=torch.int32)
+    live = tmax > 0
+    for r in range(order.shape[1]):
+        for dom, idx in _round_groups(order, r, packet, live & (occ == 0)):
+            nr, nk = _chunks(idx.numel(), nc, c)
+            for r0 in range(0, idx.numel(), nr):
+                ii = idx[r0 : r0 + nr]
+                hit = torch.zeros_like(ii, dtype=torch.bool)
+                for c0 in range(0, nc, nk):
+                    hit |= _dense_keys(o[ii], d[ii], tmin[ii], tmax[ii],
+                                       w[dom], c0, c0 + nk, True)
+                occ[ii] = occ[ii] | hit.to(torch.int32)
+    return occ
+
+
+# -------------------------------------------------------------- wrappers ----
+
+def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
+    dev = o.device
+    want = [
+        ("order", order, torch.int32, 2), ("o", o, torch.float32, 2),
+        ("d", d, torch.float32, 2), ("tmin", tmin, torch.float32, 1),
+        ("tmax", tmax, torch.float32, 1), ("bounds", bounds, torch.float32, 4),
+        ("meta", meta, torch.int32, 3), ("w", w, torch.float32, 4),
+    ]
+    for name, x, dtype, ndim in want:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
+        if x.dtype != dtype or x.dim() != ndim:
+            raise ValueError(f"{name}: want {ndim}-d {dtype}, got "
+                             f"{x.dim()}-d {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n = o.shape[0]
+    n_dom, nn = bounds.shape[0], bounds.shape[1]
+    if (o.shape[1] != 3 or d.shape != o.shape or tmin.shape != (n,)
+            or tmax.shape != (n,)):
+        raise ValueError("rays: want o, d (N, 3) and tmin, tmax (N,)")
+    if n != order.shape[0] * packet:
+        raise ValueError(f"N={n} rays != {order.shape[0]} packets x {packet}")
+    if bounds.shape[2:] != (8, 6) or meta.shape != (n_dom, nn, 8):
+        raise ValueError("bounds (D, Nn, 8, 6) / meta (D, Nn, 8) mismatch")
+    if w.shape[0] != n_dom or w.shape[2] != 4 or w.shape[3] % 3:
+        raise ValueError("w: want (D, Nc, 4, 3C)")
+    if w.shape[3] // 3 > 128:
+        raise ValueError("cluster size C must be <= 128 (7-bit row key)")
+    if order.shape[1] > n_dom:
+        raise ValueError("order has more rounds than domains")
+
+
+def _launch(fn, order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
+            outs, counters):
+    from . import _build  # noqa: PLC0415
+
+    lib = _build.load("traverse")
+    stack = lib.spray_stack_size()
+    if 7 * depth + 1 > stack:
+        raise ValueError(f"BVH depth {depth} needs a stack of {7 * depth + 1}"
+                         f" entries; the kernel has {stack}")
+    if counters is not None and (counters.dtype != torch.int64
+                                 or counters.shape != (3,)
+                                 or counters.device != o.device):
+        raise ValueError("counters: want a (3,) int64 tensor on the card")
+    n = o.shape[0]
+    nn, nc, c = bounds.shape[1], w.shape[1], w.shape[3] // 3
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    with torch.cuda.device(o.device):
+        err = getattr(lib, fn)(
+            order.data_ptr(), order.shape[1], packet, o.data_ptr(),
+            d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+            bounds.data_ptr(), meta.data_ptr(), w.data_ptr(), nn, nc, c,
+            *[x.data_ptr() for x in outs],
+            None if counters is None else counters.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+
+
+def nearest(order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
+            counters=None):
+    """Nearest hit of every ray over its packet's domain list.
+
+    order (P, R) i32 front-to-back domain ids per packet (-1 ends a list);
+    o, d (N, 3), tmin, tmax (N,) f32 with N = P * packet; pages bounds
+    (D, Nn, 8, 6) f32, meta (D, Nn, 8) i32, w (D, Nc, 4, 3C) f32; depth:
+    tree depth of the pages (`tree_depth`).  counters: optional (3,) int64
+    CUDA tensor that receives (node visits, leaf visits, ray-tri tests).
+    Returns (t (N,) f32 rounded-up hit distance or tmax, code (N,) i32
+    global code or -1)."""
+    _check(order, o, d, tmin, tmax, bounds, meta, w, packet)
+    if o.device.type == "cpu":
+        return nearest_reference(order, o, d, tmin, tmax, bounds, meta, w, packet)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    t = torch.empty_like(tmax)
+    code = torch.empty(tmax.shape, dtype=torch.int32, device=o.device)
+    if o.shape[0]:
+        _launch("spray_nearest", order, o, d, tmin, tmax, bounds, meta, w,
+                packet, depth, (t, code), counters)
+        launches["nearest_kernel"] += 1
+    return t, code
+
+
+def anyhit(order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
+           counters=None):
+    """Occlusion of every ray in (tmin, tmax) over its packet's domain list.
+    Same arguments as `nearest`; returns occ (N,) i32 (1 = occluded)."""
+    _check(order, o, d, tmin, tmax, bounds, meta, w, packet)
+    if o.device.type == "cpu":
+        return anyhit_reference(order, o, d, tmin, tmax, bounds, meta, w, packet)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    occ = torch.empty(tmax.shape, dtype=torch.int32, device=o.device)
+    if o.shape[0]:
+        _launch("spray_anyhit", order, o, d, tmin, tmax, bounds, meta, w,
+                packet, depth, (occ,), counters)
+        launches["anyhit_kernel"] += 1
+    return occ
+
+
+# ------------------------------------------------------------ attributes ----
+
+def tri_soa_from_scene(scene, device):
+    """(v0, e1, e2) tensors in ORIGINAL face order, for the hit-attribute
+    recompute against the committed triangle."""
+    verts = np.asarray(scene.vertices, np.float32)
+    faces = np.asarray(scene.faces, np.int64)
+    tv = verts[faces.reshape(-1)].reshape(-1, 3, 3)
+    return tuple(
+        torch.as_tensor(np.ascontiguousarray(x), device=device)
+        for x in (tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+    )
+
+
+def attrs_for_prims(v0, e1, e2, prim, o, d, t_kernel, tmax):
+    """Recompute (t, u, v, valid) for committed prim ids with the brute
+    oracle's Möller–Trumbore; t falls back to the kernel's value where the
+    recompute disagrees on validity (grazing hits at f32 precision)."""
+    safe = torch.clamp(prim, min=0).long()
+    t, u, v, ok = geom.moller_trumbore(o, d, v0[safe], e1[safe], e2[safe])
+    valid = prim >= 0
+    t = torch.where(valid & ok, t, torch.where(valid, t_kernel, tmax))
+    zero = torch.zeros_like(u)
+    return t, torch.where(valid, u, zero), torch.where(valid, v, zero), valid

@@ -1,0 +1,82 @@
+"""spray_tpu_torch imports no JAX and no spray_tpu, and its entry points
+require the CUDA card unless the caller asks for the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import spray_tpu_torch
+from spray_tpu_torch.core.camera import make_camera
+from spray_tpu_torch.core.config import RenderConfig
+from spray_tpu_torch.io.scenes import cornell_box
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import spray_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "spray_tpu_torch.__path__, 'spray_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'spray_tpu'))\n"
+        "print(json.dumps({'mods': mods, 'bad': bad}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "spray_tpu_torch.kernels.multidomain" in res["mods"]
+    assert "spray_tpu_torch.render" in res["mods"]
+    assert res["bad"] == []
+
+
+def test_sources_have_no_jax_import_lines():
+    files = [ROOT / "chip_smoke.py"] + sorted(
+        Path(spray_tpu_torch.__file__).parent.rglob("*.py"))
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "spray_tpu"), f"{f}: {line}"
+
+
+def test_entry_points_require_gpu(monkeypatch):
+    """device=None means CUDA: with no card they raise, never run on CPU."""
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+    from spray_tpu_torch.render import make_pipeline, render
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = cornell_box()
+    cam = make_camera(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0), up=(0, 1, 0),
+                      fov_y_deg=40, width=8, height=8)
+    cfg = RenderConfig(spp=1, bounces=1)
+    for call in (lambda: render(scene, cam, cfg),
+                 lambda: make_pipeline(scene, cam, cfg),
+                 lambda: MultiDomainClusterIntersector(scene)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(NotImplementedError):
+        make_pipeline(scene, cam, cfg, backward=True, device="cpu")
+    img = render(scene, cam, cfg, device="cpu")
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+
+
+def test_chip_smoke_fails_without_card():
+    """chip_smoke.py exits nonzero and prints no result line here."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; chip_smoke.py would run on it")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
