@@ -10,13 +10,13 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      the torch brute oracle, on a 41K-tri wisp scene (6 domains), 16,384
      random rays plus the bounce-1 and shadow wavefronts of a small render;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
-     through the plain versions, on the card;
+     through the plain versions (the PlainIntersector proxy), on the card;
   4. the main path at full size: make_pipeline(backward=False) on
      wisp_cloud(n_blobs=8, tris_per_blob=131072, seed=3) (2,621,442 tris,
      21 domains), 512x512, spp 4, bounces 2, PT+NEE, seed 0: frame time,
      rays traced, Grays/s, peak memory, launch counts, per-kernel time
      against its bound, and each kernel against its plain version on a
-     slice of the main path's own wavefronts.
+     sample of SAMPLE_PACKETS live packets of every main-path call.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
 nothing of JAX.
@@ -33,6 +33,7 @@ FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 TEST_OPS = 40  # arithmetic of one ray-triangle test (see traverse.cu)
 NODE_OPS = 8 * 22  # slab tests of one 8-wide node visit
+SAMPLE_PACKETS = 256  # live packets of each main-path call held against plain
 FAILED = []
 
 
@@ -70,6 +71,30 @@ class Recorder:
 
         self.calls.append(("anyhit", o, d, torch.zeros_like(tmax), tmax))
         return self.inner.occluded(o, d, tmax)
+
+
+class PlainIntersector:
+    """Intersector proxy that traces the same packed inputs as `inner`
+    through the kernels' plain PyTorch versions, with `inner`'s own
+    post-processing of the results."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def intersect(self, o, d, tmin, tmax):
+        from spray_tpu_torch.kernels import traverse
+
+        args, inv = self.inner._args(o, d, tmin, tmax)
+        return self.inner._hits(o, d, tmax, args, inv,
+                                *traverse.nearest_reference(*args[:-1]))
+
+    def occluded(self, o, d, tmax):
+        import torch
+
+        from spray_tpu_torch.kernels import traverse
+
+        args, inv = self.inner._args(o, d, torch.zeros_like(tmax), tmax)
+        return traverse.anyhit_reference(*args[:-1])[: o.shape[0]][inv] != 0
 
 
 def compare_hits(tag, ref, got):
@@ -121,6 +146,31 @@ def cuda_ms(torch, fn, reps=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed_once(torch, fn):
+    """(fn(), its ms by CUDA events) of one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def sample_packets(torch, args, k):
+    """The call's inputs cut to k live packets spread evenly over its live
+    packets (all of them if there are fewer), against the full pages."""
+    order, packet = args[0], args[8]
+    live_pk = torch.nonzero((args[4].view(-1, packet) > 0).any(dim=1)).view(-1)
+    if live_pk.numel() > k:
+        live_pk = live_pk[torch.linspace(0, live_pk.numel() - 1, k,
+                                         device=live_pk.device).long()]
+    ray_idx = (live_pk[:, None] * packet
+               + torch.arange(packet, device=live_pk.device)).view(-1)
+    return (order[live_pk].contiguous(),
+            *[a[ray_idx].contiguous() for a in args[1:5]], *args[5:])
 
 
 def bound_parts(torch, isect, kind, args, counts):
@@ -193,13 +243,12 @@ def main():
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"build: {len(libs)} source(s) in {time.perf_counter() - t0:.2f} s "
-          f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
-    for name, (secs, log) in _build.build_log.items():
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        t0 = time.perf_counter()
+        _, log = _build.build(src.stem)
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build {name}.cu: nvcc {secs:.2f} s; " + " | ".join(regs), flush=True)
+        print(f"build {src.name} into {_build.BUILD_DIR.relative_to(ROOT)}: "
+              f"{time.perf_counter() - t0:.2f} s; " + " | ".join(regs), flush=True)
     traverse.reset_launches()
 
     # ---- phase 2: kernel parity on a small scene ----------------------------
@@ -243,9 +292,8 @@ def main():
 
     # ---- phase 3: path parity -------------------------------------------------
     img_k = render(small, cam64, cfg64, intersector=sisect, device=dev)
-    sisect.plain = True
-    img_p = render(small, cam64, cfg64, intersector=sisect, device=dev)
-    sisect.plain = False
+    img_p = render(small, cam64, cfg64, intersector=PlainIntersector(sisect),
+                   device=dev)
     torch.cuda.synchronize()
     err = float(np.abs(img_k - img_p).max())
     check("phase3 64x64 PT+NEE kernels~plain allclose(atol 2e-3, rtol 1e-3)",
@@ -304,9 +352,10 @@ def main():
     fn(make_scene_arrays(scene, dev))
     torch.cuda.synchronize()
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    stats = {k: {"ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                 "calls": 0, "counts": np.zeros(3)} for k in ("nearest", "anyhit")}
-    slice_args = {}
+    keys = ("ms", "bound_ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms",
+            "s_ops_ms", "s_bytes_ms", "s_err")
+    stats = {k: {**dict.fromkeys(keys, 0.0), "calls": 0, "s_rays": 0,
+                 "counts": np.zeros(3)} for k in ("nearest", "anyhit")}
     for i, (kind, wo, wd, wmin, wmax) in enumerate(rec.calls):
         args, _ = isect._args(wo, wd, wmin, wmax)
         counters.zero_()
@@ -316,20 +365,32 @@ def main():
         parts = bound_parts(torch, isect, kind, args, cnt)
         bms, by = bound_of(*parts)
         live = int((wmax > 0).sum())
+        # the kernel against its plain version on a sample of this call
+        sub = sample_packets(torch, args, SAMPLE_PACKETS)
+        counters.zero_()
+        run_kernel(traverse, kind, sub, counters)
+        s_cnt = counters.cpu().numpy().astype(np.float64)
+        got = run_kernel(traverse, kind, sub)
+        ref, s_plain_ms = timed_once(torch, lambda: run_plain(traverse, kind, sub))
+        n_pk = sub[0].shape[0]
+        err = compare_raw(f"phase4 call {i} {kind} kernel~plain on {n_pk} "
+                          "main-path packets", kind, ref, got)
+        s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
+        s_parts = bound_parts(torch, isect, kind, sub, s_cnt)
         print(f"phase4 call {i} {kind}: {live} live rays, {int(cnt[0])} node "
               f"visits, {int(cnt[1])} leaf visits, {int(cnt[2])} tri tests; "
-              f"{ms:.3f} ms vs bound {bms:.4f} ms ({by})", flush=True)
+              f"{ms:.3f} ms vs bound {bms:.4f} ms ({by}); sample of {n_pk} "
+              f"packets {s_ms:.3f} ms vs plain {s_plain_ms:.3f} ms", flush=True)
         s = stats[kind]
-        s["ms"] += ms
-        s["bound_ms"] += bms
-        s["ops_ms"] += parts[0]
-        s["bytes_ms"] += parts[1]
+        for key, val in (("ms", ms), ("ops_ms", parts[0]), ("bytes_ms", parts[1]),
+                         ("bound_ms", bms), ("s_ms", s_ms),
+                         ("s_plain_ms", s_plain_ms), ("s_ops_ms", s_parts[0]),
+                         ("s_bytes_ms", s_parts[1])):
+            s[key] += val
+        s["s_err"] = max(s["s_err"], err)
+        s["s_rays"] += sub[1].shape[0]
         s["calls"] += 1
         s["counts"] += cnt
-        # the slice held against the plain version: the bounce-1 wavefront
-        # for nearest, the first shadow wavefront for anyhit
-        if (kind == "nearest" and s["calls"] == 2) or (kind == "anyhit" and s["calls"] == 1):
-            slice_args[kind] = args
     del rec
 
     kernels = []
@@ -337,41 +398,27 @@ def main():
         ("nearest", "nearest_kernel", "spray_tpu/kernels/traverse.py:379"),
         ("anyhit", "anyhit_kernel", "spray_tpu/kernels/traverse.py:658"),
     ):
-        args = slice_args[kind]
-        order, packet = args[0], args[8]
-        live_pk = torch.nonzero((args[4].view(-1, packet) > 0).any(dim=1)).view(-1)
-        pick = live_pk[torch.linspace(0, live_pk.numel() - 1, 16, device=dev).long()]
-        ray_idx = (pick[:, None] * packet + torch.arange(packet, device=dev)).view(-1)
-        sub = (order[pick].contiguous(),
-               *[a[ray_idx].contiguous() for a in args[1:5]], *args[5:])
-        counters.zero_()
-        run_kernel(traverse, kind, sub, counters)
-        cnt = counters.cpu().numpy().astype(np.float64)
-        got = run_kernel(traverse, kind, sub)
-        ref = run_plain(traverse, kind, sub)
-        torch.cuda.synchronize()
-        err = compare_raw(f"phase4 {name} kernel~plain on 16 main-path packets",
-                          kind, ref, got)
-        ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
-        plain_ms = cuda_ms(torch, lambda: run_plain(traverse, kind, sub), reps=1)
-        bms, by = bound_of(*bound_parts(torch, isect, kind, sub, cnt))
         s = stats[kind]
-        fb = s["bound_ms"]
         fby = "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes"
+        bms, by = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
         print(f"phase4 {name}: per frame {s['ms']:.3f} ms in {s['calls']} launches"
               f" ({launches[name] / 3:.0f} per timed frame), "
-              f"{int(s['counts'][2])} tri tests, bound {fb:.4f} ms; "
-              f"16-packet slice {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-              f"bound {bms:.4f} ms ({by}); card {smi}", flush=True)
+              f"{int(s['counts'][2])} tri tests, bound {s['bound_ms']:.4f} ms "
+              f"({fby}); samples ({s['s_rays']} rays over {s['calls']} calls) "
+              f"{s['s_ms']:.3f} ms vs plain {s['s_plain_ms']:.3f} ms, bound "
+              f"{bms:.4f} ms ({by}); card {smi}", flush=True)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "spray_tpu_torch/kernels/csrc/traverse.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "frame_ms": s["ms"], "frame_bound_ms": fb, "frame_bound_by": fby,
-            "frame_launches": s["calls"], "frame_tri_tests": int(s["counts"][2]),
-            "slice": "16 live packets of the main path's wavefront, full pages",
+            "max_abs_err": s["s_err"], "ms": s["s_ms"],
+            "plain_ms": s["s_plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "frame_ms": s["ms"], "frame_bound_ms": s["bound_ms"],
+            "frame_bound_by": fby, "frame_launches": s["calls"],
+            "frame_tri_tests": int(s["counts"][2]),
+            "sample": f"{SAMPLE_PACKETS} live packets of each main-path call "
+                      f"({s['s_rays']} rays), full pages",
         })
 
     print(json.dumps({"kernels": kernels}), flush=True)

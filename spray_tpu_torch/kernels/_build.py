@@ -14,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -38,7 +37,6 @@ _SIGNATURES = {
 }
 
 _libs = {}
-build_log = {}  # source name -> (seconds, nvcc stderr) of builds this process ran
 
 
 def _nvcc():
@@ -56,48 +54,30 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def start_build(name):
-    """Start nvcc on csrc/<name>.cu unless the library is already built.
-    Returns (library path, Popen or None, start time)."""
+def build(name):
+    """Compile csrc/<name>.cu with nvcc unless the library is already built.
+    Returns (library path, nvcc's stderr: its ptxas report, "" if cached);
+    raises with nvcc's output on error."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
-        return lib, None, time.perf_counter()
+        return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    )
-    return lib, proc, time.perf_counter()
-
-
-def finish_build(name, lib, proc, t0):
-    """Wait for a build from start_build; raise with nvcc's output on error."""
-    if proc is None:
-        return lib
-    out, err = proc.communicate()
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{out}\n{err}")
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    build_log[name] = (time.perf_counter() - t0, err)
-    return lib
-
-
-def build_all():
-    """Build every csrc/*.cu source, all nvcc processes started together."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    started = {n: start_build(n) for n in names}
-    return {n: finish_build(n, *started[n]) for n in names}
+    return lib, proc.stderr
 
 
 def load(name):
     """ctypes handle of csrc/<name>.cu, building it at first use."""
     lib = _libs.get(name)
     if lib is None:
-        path = finish_build(name, *start_build(name))
+        path, _ = build(name)
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in _SIGNATURES.items():
             if hasattr(lib, fn):

@@ -3,12 +3,14 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC (see spray_tpu_torch/kernels/_build.py), WITHOUT
 // --use_fast_math: that flag flushes denormals and approximates division,
-// which would break the t-key contract below.  nvcc still contracts a*b+c
-// into FMA by default, so the transform products and t = -ow/dw here differ
-// from the plain PyTorch versions (kernels/traverse.py, one rounding per op)
-// by about one ulp.  That is far inside the 128-ulp key quantum and the
-// tolerances the tests hold the kernels to (rtol 2e-4 on t after the exact
-// attribute recompute; occlusion equal).
+// which would break the t-key contract below.  nvcc contracts a*b+c into FMA
+// by default; the ray-triangle test therefore spells its arithmetic with the
+// _rn intrinsics, which are never contracted, so t, u and v round after every
+// op exactly as in the plain PyTorch versions (kernels/traverse.py).  With
+// FMA, the one-ulp differences in u and v decided a few grazing rays at a
+// triangle edge differently (the per-triangle Woop test is not watertight),
+// and those rays then hit a surface behind.  The slab tests keep FMA: the
+// plain versions have no BVH to match.
 //
 // Page layout (one domain d of D, from build_cluster_domains):
 //   bounds (D, Nn, 8, 6) f32  per child [lox, loy, loz, hix, hiy, hiz]
@@ -70,6 +72,13 @@ __device__ __forceinline__ float slab_entry(const float* b, const Ray& r,
     float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                      fminf(fmaxf(t0z, t1z), hi));
     return tn <= tf ? tn : __int_as_float(0x7F800000);
+}
+
+// x*w[0] + y*w[s] + z*w[2s], rounded after every op like the plain version.
+__device__ __forceinline__ float dot3_rn(float x, float y, float z,
+                                         const float* w, int s) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(x, w[0]), __fmul_rn(y, w[s])),
+                     __fmul_rn(z, w[2 * s]));
 }
 
 // Walks one domain's 8-wide BVH for one ray with a per-thread ordered stack.
@@ -137,20 +146,17 @@ __device__ bool traverse_domain(const Pages& pg, int dom, const Ray& r,
             const float* wu = W + i;
             const float* wv = W + pg.c + i;
             const float* ww = W + 2 * pg.c + i;
-            const float dw = r.dx * ww[0] + r.dy * ww[c3] + r.dz * ww[2 * c3];
+            const float dw = dot3_rn(r.dx, r.dy, r.dz, ww, c3);
             if (!(fabsf(dw) > 1e-20f)) continue;
-            const float ow = r.ox * ww[0] + r.oy * ww[c3] + r.oz * ww[2 * c3]
-                             + ww[3 * c3];
-            const float t = -ow / dw;
-            const float ou = r.ox * wu[0] + r.oy * wu[c3] + r.oz * wu[2 * c3]
-                             + wu[3 * c3];
-            const float du = r.dx * wu[0] + r.dy * wu[c3] + r.dz * wu[2 * c3];
-            const float ov = r.ox * wv[0] + r.oy * wv[c3] + r.oz * wv[2 * c3]
-                             + wv[3 * c3];
-            const float dv = r.dx * wv[0] + r.dy * wv[c3] + r.dz * wv[2 * c3];
-            const float u = ou + t * du;
-            const float v = ov + t * dv;
-            const bool in_uv = u >= 0.f && v >= 0.f && u + v <= 1.f;
+            const float ow = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, ww, c3), ww[3 * c3]);
+            const float t = __fdiv_rn(-ow, dw);
+            const float ou = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, wu, c3), wu[3 * c3]);
+            const float du = dot3_rn(r.dx, r.dy, r.dz, wu, c3);
+            const float ov = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, wv, c3), wv[3 * c3]);
+            const float dv = dot3_rn(r.dx, r.dy, r.dz, wv, c3);
+            const float u = __fadd_rn(ou, __fmul_rn(t, du));
+            const float v = __fadd_rn(ov, __fmul_rn(t, dv));
+            const bool in_uv = u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f;
             if (OCC) {
                 // occlusion gate is strict on both ends
                 if (in_uv && t > r.tmin && t < best_t) return true;

@@ -197,11 +197,6 @@ def _packet_domain_order(o, d, tmin, tmax, dom_aabb, packet):
 class MultiDomainClusterIntersector:
     """Drop-in intersector: D per-domain cluster BVHs traversed front to
     back by the CUDA kernels (or their plain versions on the CPU).
-
-    counters: set to a (3,) int64 CUDA tensor to have the kernels count
-    (node visits, leaf visits, ray-triangle tests); None on the main path.
-    plain: set True to trace through the kernels' plain PyTorch versions on
-    any device (to hold the kernels against them on the card).
     """
 
     def __init__(self, scene, n_domains=None, packet=256, cluster=None,
@@ -224,8 +219,6 @@ class MultiDomainClusterIntersector:
 
         self.device = device
         self.packet = packet
-        self.counters = None
-        self.plain = False
         aabb = np.asarray(pages["aabb"], np.float32)
         self.dom_aabb = dev(aabb, np.float32)
         self.world_lo = dev(aabb[:, 0:3].min(0), np.float32)
@@ -246,13 +239,10 @@ class MultiDomainClusterIntersector:
         return (order, *rays, self.bounds, self.meta, self.w, self.packet,
                 self.depth), inv
 
-    def intersect(self, o, d, tmin, tmax):
+    def _hits(self, o, d, tmax, args, inv, t, code):
+        """Hits in the caller's ray order from the packet-ordered (t, code)
+        of `nearest` on `_args`' output."""
         n = o.shape[0]
-        args, inv = self._args(o, d, tmin, tmax)
-        if self.plain:
-            t, code = traverse.nearest_reference(*args[:-1])
-        else:
-            t, code = traverse.nearest(*args, counters=self.counters)
         prim = torch.where(
             code >= 0, self.tri_ids[torch.clamp(code, min=0).long()], -1
         ).to(torch.int32)
@@ -264,11 +254,10 @@ class MultiDomainClusterIntersector:
         return Hits(t=torch.where(valid, t, tmax), prim=bp, u=u, v=v,
                     valid=valid)
 
+    def intersect(self, o, d, tmin, tmax):
+        args, inv = self._args(o, d, tmin, tmax)
+        return self._hits(o, d, tmax, args, inv, *traverse.nearest(*args))
+
     def occluded(self, o, d, tmax):
-        n = o.shape[0]
         args, inv = self._args(o, d, torch.zeros_like(tmax), tmax)
-        if self.plain:
-            occ = traverse.anyhit_reference(*args[:-1])
-        else:
-            occ = traverse.anyhit(*args, counters=self.counters)
-        return occ[:n][inv] != 0
+        return traverse.anyhit(*args)[: o.shape[0]][inv] != 0
