@@ -9,15 +9,31 @@ Phases (each prints its lines; any failed check makes the run exit 1):
   2. kernel parity: each CUDA kernel against its plain PyTorch version and
      the torch brute oracle, on a 41K-tri wisp scene (6 domains), 16,384
      random rays plus the bounce-1 and shadow wavefronts of a small render;
+     the single-domain slot kernel through ClusterBVHIntersector on the
+     same scene, dead packets included;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
-     through the plain versions (the PlainIntersector proxy), on the card;
-  4. the main path at full size: make_pipeline(backward=False) on
+     through the plain versions (the PlainIntersector proxy), on the card,
+     and so are the loss and gradients of a 64x64 training step;
+  4. the forward path at full size: make_pipeline(backward=False) on
      wisp_cloud(n_blobs=8, tris_per_blob=131072, seed=3) (2,621,442 tris,
      21 domains), 512x512, spp 4, bounces 2, PT+NEE, seed 0: frame time,
      rays traced, Grays/s, peak memory, launch counts, per-kernel time
      against its bound, and each kernel against its plain version on a
-     sample of SAMPLE_PACKETS live packets of every main-path call.
-The line before the last is the kernels JSON; the last line is
+     sample of SAMPLE_PACKETS live packets of every main-path call;
+  5. the speculative epoch scheduler at full size: the same scene and
+     camera at spp 1, host-driven render_device through OOCIntersector in
+     the reference's two scheduler configurations (8 domains in 8 slots:
+     speculate True, 3, False; 64 domains through 8 slots: lookahead on and
+     off): frame time and scheduler counters of each; the five images
+     byte-identical and close to the forward path's; the slot kernel and
+     the any-hit kernel (one-entry domain lists) timed over every call of
+     one frame against their bounds, and held against their plain versions
+     on sampled calls of that frame;
+  6. the training step at full size: make_pipeline(backward=True) on the
+     bench configuration of phase 4: step time, Grays/s fwd+bwd, peak
+     memory, loss and gradient norms.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
 nothing of JAX.
 """
@@ -159,30 +175,34 @@ def timed_once(torch, fn):
     return out, a.elapsed_time(b)
 
 
-def sample_packets(torch, args, k):
+def sample_packets(torch, args, k, dead=0):
     """The call's inputs cut to k live packets spread evenly over its live
-    packets (all of them if there are fewer), against the full pages."""
+    packets (all of them if there are fewer) and its first `dead` dead
+    packets, against the full pages.  args[0] is a domain list or a bucket
+    map."""
     order, packet = args[0], args[8]
-    live_pk = torch.nonzero((args[4].view(-1, packet) > 0).any(dim=1)).view(-1)
+    live = (args[4].view(-1, packet) > 0).any(dim=1)
+    live_pk = torch.nonzero(live).view(-1)
     if live_pk.numel() > k:
         live_pk = live_pk[torch.linspace(0, live_pk.numel() - 1, k,
                                          device=live_pk.device).long()]
-    ray_idx = (live_pk[:, None] * packet
-               + torch.arange(packet, device=live_pk.device)).view(-1)
-    return (order[live_pk].contiguous(),
+    pk = torch.cat([live_pk, torch.nonzero(~live).view(-1)[:dead]])
+    ray_idx = (pk[:, None] * packet
+               + torch.arange(packet, device=pk.device)).view(-1)
+    return (order[pk].contiguous(),
             *[a[ray_idx].contiguous() for a in args[1:5]], *args[5:])
 
 
-def bound_parts(torch, isect, kind, args, counts):
+def bound_parts(torch, kind, args, counts):
     """(ms for the operations at the fp32 peak, ms for the bytes at the memory
-    rate) of one call's work; its bound is the larger.  Bytes: pages of every
-    domain the call lists, the rays and the domain lists read once, the
-    outputs written once.  Operations: the counted tests and node visits."""
-    order, o = args[0], args[1]
-    doms = torch.unique(order[order >= 0])
-    page = (isect.bounds[0].numel() * 4 + isect.meta[0].numel() * 4
-            + isect.w[0].numel() * 4)
-    nbytes = (doms.numel() * page + o.shape[0] * (24 + 8) + order.numel() * 4
+    rate) of one call's work; its bound is the larger.  Bytes: the pages of
+    every domain the call lists, each live ray (tmax > 0) and the domain
+    lists read once, every lane's outputs written once.  Operations: the
+    counted tests and node visits."""
+    order, o, tmax, bounds, meta, w = args[0], args[1], args[4], *args[5:8]
+    doms = torch.unique(order[order >= 0]).numel()
+    page = (bounds[0].numel() + meta[0].numel() + w[0].numel()) * 4
+    nbytes = (doms * page + int((tmax > 0).sum()) * 32 + order.numel() * 4
               + o.shape[0] * (8 if kind == "nearest" else 4))
     ops = TEST_OPS * counts[2] + NODE_OPS * counts[0]
     return ops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
@@ -200,6 +220,373 @@ def run_kernel(traverse, kind, args, counters=None):
 def run_plain(traverse, kind, args):
     fn = traverse.nearest_reference if kind == "nearest" else traverse.anyhit_reference
     return fn(*args[:-1])
+
+
+def profile_top(torch, tag, fn, k=8):
+    """One call of fn under torch.profiler: wall time; the device's busy
+    time (the union of the intervals of its kernels and copies, so work
+    that overlaps on two streams counts once), their summed time and the
+    idle share; the k kernels with the most device time, then the k ops
+    with the most host time.  Only device events count as device time: an
+    aten op's row also carries the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def on_device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if on_device(e)):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy /= 1e3
+    ev = prof.key_averages()
+    kern = [e for e in ev if on_device(e)]
+    summed = sum(e.self_device_time_total for e in kern) / 1e3
+    top_dev = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:k]
+    top_cpu = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)[:k]
+    n_dev = sum(e.count for e in kern)
+    print(f"profile {tag}: wall {wall:.1f} ms under the profiler, device busy "
+          f"{busy:.1f} ms (kernels and copies summed {summed:.1f} ms over "
+          f"{n_dev} events), idle share {1 - busy / wall:.3f}; device: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+                      f"x{e.count}" for e in top_dev)
+          + " | host: " + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.2f}"
+                                    f" ms x{e.count}" for e in top_cpu), flush=True)
+    check(f"{tag} profile: device busy <= wall", 0 < busy <= wall,
+          f"({busy:.1f} vs {wall:.1f} ms)")
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_summed_ms": summed,
+            "device_events": n_dev, "idle_share": 1 - busy / wall}
+
+
+def check_dead_lanes(torch, tag, args, out):
+    """A dead packet's lanes (bucket -1) return t 0 and code -1 from the
+    slot kernel, no occlusion from the any-hit kernel."""
+    dead = args[0].repeat_interleave(args[8]) < 0
+    if isinstance(out, tuple):
+        t, code = out
+        ok = bool((t[dead] == 0).all()) and bool((code[dead] == -1).all())
+        what = "t 0, code -1"
+    else:
+        ok, what = bool((out[dead] == 0).all()), "occlusion 0"
+    check(f"{tag} dead packets give {what}", ok, f"({int(dead.sum())} dead lanes)")
+
+
+class SlotRecorder:
+    """While installed, keeps a copy of the inputs of every nearest_slot and
+    anyhit call, by kind (the epoch loop rewrites its window buffer in
+    place)."""
+
+    NAMES = {"nearest": "nearest_slot", "anyhit": "anyhit"}
+
+    def __init__(self, traverse):
+        self.traverse = traverse
+        self.inner = {k: getattr(traverse, n) for k, n in self.NAMES.items()}
+        self.calls = {k: [] for k in self.NAMES}
+
+    def __enter__(self):
+        def recorder(kind):
+            def record(order, o, d, tmin, tmax, *rest, counters=None):
+                self.calls[kind].append((order.clone(), o, d, tmin, tmax.clone(),
+                                         *rest))
+                return self.inner[kind](order, o, d, tmin, tmax, *rest,
+                                        counters=counters)
+            return record
+
+        for kind, name in self.NAMES.items():
+            setattr(self.traverse, name, recorder(kind))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, name in self.NAMES.items():
+            setattr(self.traverse, name, self.inner[kind])
+
+
+def sched_kernel_stats(torch, np, traverse, kind, calls, smi):
+    """One scheduler frame's calls of one kernel (kind "nearest": the slot
+    kernel; "anyhit": the any-hit kernel on one-entry domain lists): every
+    call timed against its bound, and SLOT_SAMPLE_CALLS of them held
+    against the plain version on SLOT_SAMPLE_PACKETS live packets and one
+    dead packet each."""
+    if kind == "nearest":
+        fn, plain = traverse.nearest_slot, traverse.nearest_slot_reference
+        name = "nearest_slot_kernel"
+    else:
+        fn, plain, name = traverse.anyhit, traverse.anyhit_reference, "anyhit_kernel"
+    counters = torch.zeros(3, dtype=torch.int64, device=calls[0][1].device)
+    st = {k: 0.0 for k in ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms",
+                            "s_ops_ms", "s_bytes_ms", "s_err")}
+    st.update(calls=len(calls), s_calls=0, s_rays=0, counts=np.zeros(3))
+    for args in calls:
+        counters.zero_()
+        fn(*args, counters=counters)
+        cnt = counters.cpu().numpy().astype(np.float64)
+        st["ms"] += cuda_ms(torch, lambda: fn(*args))
+        ops_ms, bytes_ms = bound_parts(torch, kind, args, cnt)
+        st["ops_ms"] += ops_ms
+        st["bytes_ms"] += bytes_ms
+        st["counts"] += cnt
+    live_calls = [a for a in calls if bool((a[0] >= 0).any())]
+    pick = np.linspace(0, len(live_calls) - 1, min(SLOT_SAMPLE_CALLS,
+                                                   len(live_calls))).astype(int)
+    for i in sorted(set(pick.tolist())):
+        sub = sample_packets(torch, live_calls[i], SLOT_SAMPLE_PACKETS, dead=1)
+        counters.zero_()
+        got = fn(*sub, counters=counters)
+        s_cnt = counters.cpu().numpy().astype(np.float64)
+        ref_out, plain_ms = timed_once(torch, lambda: plain(*sub[:-1]))
+        tag = f"phase5 {name} call {i} ({sub[0].shape[0]} packets)"
+        st["s_err"] = max(st["s_err"], compare_raw(f"{tag} kernel~plain", kind,
+                                                   ref_out, got))
+        check_dead_lanes(torch, f"{tag} kernel", sub, got)
+        st["s_ms"] += cuda_ms(torch, lambda: fn(*sub))
+        st["s_plain_ms"] += plain_ms
+        ops_ms, bytes_ms = bound_parts(torch, kind, sub, s_cnt)
+        st["s_ops_ms"] += ops_ms
+        st["s_bytes_ms"] += bytes_ms
+        st["s_calls"] += 1
+        st["s_rays"] += sub[1].shape[0]
+    check(f"phase5 {name} held against its plain version on scheduler calls",
+          st["s_calls"] > 0, f"({st['s_calls']} calls)")
+    fb, fby = bound_of(st["ops_ms"], st["bytes_ms"])
+    sb, sby = bound_of(st["s_ops_ms"], st["s_bytes_ms"])
+    print(f"phase5 {name}: one config4_noprefetch frame {st['ms']:.3f} ms in "
+          f"{len(calls)} launches, {int(st['counts'][2])} tri tests, bound "
+          f"{fb:.4f} ms ({fby}); samples ({st['s_rays']} rays over "
+          f"{st['s_calls']} calls) {st['s_ms']:.3f} ms vs plain "
+          f"{st['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max abs err "
+          f"{st['s_err']:.3g}; card {smi}", flush=True)
+    st.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
+    return st
+
+
+def phase2_slot(torch, traverse, small, brute, waves, dev):
+    """The slot kernel through ClusterBVHIntersector on the small scene."""
+    cisect = traverse.ClusterBVHIntersector(small, device=dev)
+    print(f"phase2: ClusterBVHIntersector, one domain of {small.num_faces} tris, "
+          f"tree depth {cisect.depth}", flush=True)
+    for tag, (wo, wd, wmin, wmax) in waves:
+        args = cisect._args(wo, wd, wmin, wmax)
+        got = traverse.nearest_slot(*args)
+        ref = traverse.nearest_slot_reference(*args[:-1])
+        torch.cuda.synchronize()
+        compare_raw(f"phase2 {tag} slot kernel~plain", "nearest", ref, got)
+        check_dead_lanes(torch, f"phase2 {tag} slot kernel", args, got)
+        check_dead_lanes(torch, f"phase2 {tag} slot plain", args, ref)
+        compare_hits(f"phase2 {tag} ClusterBVH kernel~brute",
+                     brute.intersect(wo, wd, wmin, wmax),
+                     cisect.intersect(wo, wd, wmin, wmax))
+    wo, wd, _, _ = waves[0][1]
+    far = torch.full((wo.shape[0],), 1e30, device=dev)
+    ob, oc = brute.occluded(wo, wd, far), cisect.occluded(wo, wd, far)
+    check("phase2 ClusterBVH anyhit kernel~brute occlusion equal",
+          bool((ob == oc).all()), f"({int((ob != oc).sum())} differ)")
+
+
+def phase3_grads(torch, make_pipeline, small, cam64, cfg64, sisect, dev):
+    """A 64x64 training step through the kernels == through the plain
+    versions: same visibility, so the same loss and gradients up to the
+    order of the backward's scatter-adds."""
+    outs = [make_pipeline(small, cam64, cfg64, backward=True, intersector=x,
+                          device=dev).run()
+            for x in (sisect, PlainIntersector(sisect))]
+    (lk, gk, nk), (lp, gp, np_) = outs
+    check("phase3 64x64 train step kernels~plain loss and rays",
+          abs(float(lk) - float(lp)) <= 1e-6 * abs(float(lp)) and int(nk) == int(np_),
+          f"(loss {float(lk):.8f} vs {float(lp):.8f}, rays {int(nk)} vs {int(np_)})")
+    for k in gp:
+        err = float((gk[k] - gp[k]).abs().max())
+        tol = 1e-4 * gp[k].abs() + 1e-6 * float(gp[k].abs().max())
+        check(f"phase3 64x64 {k} gradients kernels~plain (rtol 1e-4, atol 1e-6 "
+              "of the largest)", bool(((gk[k] - gp[k]).abs() <= tol).all())
+              and float(gp[k].abs().max()) > 0,
+              f"(max abs diff {err:.3g}, max |g| {float(gp[k].abs().max()):.4g})")
+
+
+SCHED_TIMED = 2  # timed frames of each scheduler configuration, after one warm-up
+SLOT_SAMPLE_CALLS = 8  # slot calls of one config-4 frame held against plain
+SLOT_SAMPLE_PACKETS = 64  # live packets of each of those calls
+
+
+def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
+    """The speculative epoch scheduler at full size.  Returns (stats of the
+    slot kernel and of the one-domain any-hit kernel for the kernels JSON,
+    by kind; launch counts of the path)."""
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.integrators.device import render_device
+    from spray_tpu_torch.kernels import traverse
+    from spray_tpu_torch.kernels.multidomain import build_cluster_domains
+    from spray_tpu_torch.render import render
+    from spray_tpu_torch.sched.epochs import EpochStats, OOCIntersector
+
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+
+    cfg1 = RenderConfig(width=512, height=512, spp=1, bounces=2,
+                        integrator="pt", nee=True, seed=0)
+    pages = {}
+    for nd in (8, 64):
+        t0 = time.perf_counter()
+        pages[nd] = build_cluster_domains(scene, nd)
+        print(f"phase5: {nd} domains, pages w {pages[nd]['w'].shape}, built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    # the forward multi-domain path over the same 8-domain pages: the
+    # reference image, and the wavefronts it traced
+    md8 = Recorder(MultiDomainClusterIntersector.from_pages(scene, pages[8],
+                                                            device=dev))
+    ref = render(scene, cam, cfg1, intersector=md8, device=dev)
+    ref21 = render(scene, cam, cfg1, intersector=md_isect, device=dev)
+    configs = [
+        ("config3_speculative", 8, dict(speculate=True, lookahead=False)),
+        ("config3_bounded3", 8, dict(speculate=3, lookahead=False)),
+        ("config3_baseline", 8, dict(speculate=False, lookahead=False)),
+        ("config4_prefetch", 64, dict(speculate=True, lookahead=True)),
+        ("config4_noprefetch", 64, dict(speculate=True, lookahead=False)),
+    ]
+    images, res = {}, {}
+    traverse.reset_launches()
+    for name, nd, kw in configs:
+        oc = OOCIntersector(scene, n_domains=nd, num_slots=8, pages=pages[nd],
+                            device=dev, **kw)
+        t0 = time.perf_counter()
+        render_device(scene, cam, cfg1, intersector=oc, device=dev)
+        warm = time.perf_counter() - t0
+        oc.stats = EpochStats()
+        oc.residency.hits = oc.residency.loads = oc.residency.prefetches = 0
+        times = []
+        for _ in range(SCHED_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render_device(scene, cam, cfg1, intersector=oc, device=dev)
+            times.append(time.perf_counter() - t0)
+        s = oc.stats
+        r = {k: getattr(s, k) / SCHED_TIMED for k in (
+            "epochs", "rays_traced", "rays_speculated", "committed",
+            "domain_loads", "cache_hits", "prefetches")}
+        r.update(frame_s=min(times), warm_s=warm,
+                 speculation_efficiency=s.speculation_efficiency,
+                 lookahead_active=oc.lookahead, probe_mb_s=oc.host_to_hbm_mbps,
+                 grays_per_sec=r["rays_traced"] / min(times) / 1e9)
+        res[name], images[name] = r, img
+        print(f"phase5 {name}: frame {min(times):.4f} s (times "
+              f"{[round(t, 4) for t in times]}, warm-up {warm:.2f} s); per "
+              f"frame: epochs {r['epochs']:g}, activations {r['rays_traced']:g},"
+              f" speculated {r['rays_speculated']:g}, committed "
+              f"{r['committed']:g}, speculation efficiency "
+              f"{r['speculation_efficiency']:.4f}, loads {r['domain_loads']:g},"
+              f" hits {r['cache_hits']:g}, prefetches {r['prefetches']:g}; "
+              f"lookahead {oc.lookahead}, probe {oc.host_to_hbm_mbps} MB/s; "
+              f"card {smi}", flush=True)
+    launches = dict(traverse.launches)
+    print(f"phase5: launches over the five configurations {launches}", flush=True)
+    for k in ("nearest_slot_kernel", "anyhit_kernel"):
+        check(f"phase5 {k} launched on the scheduler path", launches[k] > 0,
+              f"({launches[k]})")
+    first = images[configs[0][0]]
+    for name, img in images.items():
+        check(f"phase5 {name} image byte-identical to {configs[0][0]}",
+              img.tobytes() == first.tobytes(),
+              f"(max abs {float(np.abs(img - first).max()):.3g})")
+    # Over the same 8 domains every pixel agrees.  Over the bench's 21
+    # domains the clusters differ, and two triangles hit within one 128-ulp
+    # key quantum (a ray grazing a shared edge) are tied; the traversal order
+    # breaks the tie, so a few pixels may take the other triangle's path.
+    for tag, r_img, max_px in (("8-domain", ref, 0),
+                               ("21-domain", ref21, first[..., 0].size // 10000)):
+        far = ~np.isclose(first, r_img, atol=2e-3, rtol=1e-3)
+        n_px = int(far.any(axis=2).sum())
+        check(f"phase5 scheduler image ~ forward {tag} multi-domain image "
+              f"(atol 2e-3, rtol 1e-3; at most {max_px} pixels outside)",
+              n_px <= max_px,
+              f"(max abs {float(np.abs(first - r_img).max()):.3g}, {n_px} pixels "
+              f"outside, mean {first.mean():.6f} vs {r_img.mean():.6f})")
+    # hit level: the config-3 scheduler against the forward path on the
+    # frame's own bounce and shadow wavefronts
+    oc3 = OOCIntersector(scene, n_domains=8, num_slots=8, pages=pages[8],
+                         device=dev, lookahead=False)
+    for i, (kind, wo, wd, wmin, wmax) in enumerate(md8.calls):
+        if kind == "nearest":
+            compare_hits(f"phase5 call {i} nearest scheduler~forward",
+                         md8.inner.intersect(wo, wd, wmin, wmax),
+                         oc3.intersect(wo, wd, wmin, wmax))
+        else:
+            a, b = md8.inner.occluded(wo, wd, wmax), oc3.occluded(wo, wd, wmax)
+            check(f"phase5 call {i} anyhit scheduler~forward occlusion equal",
+                  bool((a == b).all()), f"({int((a != b).sum())} differ)")
+    del md8, oc3
+    check("phase5 finite nonzero image", bool(np.isfinite(first).all())
+          and first.mean() > 0, f"(mean {first.mean():.6f})")
+    check("phase5 speculative epochs <= baseline epochs",
+          res["config3_speculative"]["epochs"] <= res["config3_baseline"]["epochs"],
+          f"({res['config3_speculative']['epochs']:g} vs "
+          f"{res['config3_baseline']['epochs']:g})")
+
+    # both kernels over every call of one config-4 frame, and against their
+    # plain versions on sampled calls of it
+    prof = profile_top(torch, "phase5 config4_noprefetch frame",
+                       lambda: render_device(scene, cam, cfg1, intersector=oc,
+                                             device=dev))
+    with SlotRecorder(traverse) as recorder:
+        render_device(scene, cam, cfg1, intersector=oc, device=dev)
+    st = {kind: sched_kernel_stats(torch, np, traverse, kind,
+                                   recorder.calls[kind], smi)
+          for kind in ("nearest", "anyhit")}
+    st["nearest"].update(configs=res, profile=prof)
+    del recorder
+    return st, launches
+
+
+def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
+    """The training step at full size.  Returns (its numbers, launch counts
+    of the path)."""
+    from spray_tpu_torch.kernels import traverse
+    from spray_tpu_torch.render import make_pipeline
+
+    pipe = make_pipeline(scene, cam, cfg, backward=True, intersector=isect,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.run()  # warm-up step
+    warm = time.perf_counter() - t0
+    traverse.reset_launches()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.run()  # synchronises the card before returning
+        times.append(time.perf_counter() - t0)
+    launches = dict(traverse.launches)
+    loss, grads, _ = out
+    rays = pipe.rays_traced(out)
+    step = min(times)
+    prof = profile_top(torch, "phase6 train step", pipe.run)
+    peak = torch.cuda.max_memory_allocated()
+    norms = {k: float(g.norm()) for k, g in grads.items()}
+    print(f"phase6: train step times {[round(t, 4) for t in times]} s; min "
+          f"{step:.4f} s (warm-up {warm:.2f} s); rays_traced {rays}; "
+          f"{rays / step / 1e9:.6f} Grays/s fwd+bwd; peak memory "
+          f"{peak / 2**30:.3f} GiB; loss {float(loss):.8f}; gradient norms "
+          f"{norms}; launches over 3 steps {launches}; card {smi}", flush=True)
+    for k, g in grads.items():
+        check(f"phase6 {k} gradients finite and nonzero",
+              bool(torch.isfinite(g).all()) and norms[k] > 0,
+              f"(norm {norms[k]:.6g})")
+    check("phase6 loss finite", bool(torch.isfinite(loss)), f"({float(loss)})")
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"phase6 {k} launched on the training path", launches[k] > 0,
+              f"({launches[k]})")
+    return {"step_s": step, "warm_s": warm, "rays_traced": rays,
+            "grays_per_sec_fwd_bwd": rays / step / 1e9, "peak_gib": peak / 2**30,
+            "loss": float(loss), "grad_norms": norms, "profile": prof}, launches
 
 
 def main():
@@ -289,6 +676,10 @@ def main():
             check(f"phase2 {tag} anyhit kernel~brute occlusion equal",
                   bool((ob == ok).all()), f"({int((ob != ok).sum())} differ)")
         torch.cuda.synchronize()
+    tdead = tmax.clone()
+    tdead[1024:4096] = 0.0  # packets 4-15 dead
+    phase2_slot(torch, traverse, small, brute,
+                [("random", (o, d, tmin, tdead)), ("bounce1", bounce1[1:])], dev)
 
     # ---- phase 3: path parity -------------------------------------------------
     img_k = render(small, cam64, cfg64, intersector=sisect, device=dev)
@@ -299,6 +690,7 @@ def main():
     check("phase3 64x64 PT+NEE kernels~plain allclose(atol 2e-3, rtol 1e-3)",
           bool(np.allclose(img_k, img_p, atol=2e-3, rtol=1e-3)),
           f"(max abs {err:.3g}, mean {img_k.mean():.5f})")
+    phase3_grads(torch, make_pipeline, small, cam64, cfg64, sisect, dev)
 
     # ---- phase 4: the main path at full size --------------------------------
     t0 = time.perf_counter()
@@ -333,6 +725,7 @@ def main():
     img = out[0]
     rays = pipe.rays_traced(out)
     frame = min(times)
+    profile_top(torch, "phase4 forward frame", pipe.run)
     peak = torch.cuda.max_memory_allocated()
     mean = float(img.mean())
     print(f"phase4: frame times {[round(t, 4) for t in times]} s; min {frame:.4f} s;"
@@ -343,8 +736,9 @@ def main():
     check("phase4 image finite and nonzero",
           bool(torch.isfinite(img).all()) and mean > 0, f"(mean {mean:.6f})")
     check("phase4 rays traced > 0", rays > 0, f"({rays})")
-    for k, v in launches.items():
-        check(f"phase4 {k} launched on the main path", v > 0, f"({v})")
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"phase4 {k} launched on the forward path", launches[k] > 0,
+              f"({launches[k]})")
 
     # per-kernel time, tests and bound at the main path's shapes
     rec = Recorder(isect)
@@ -362,7 +756,7 @@ def main():
         run_kernel(traverse, kind, args, counters)
         cnt = counters.cpu().numpy().astype(np.float64)
         ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, args))
-        parts = bound_parts(torch, isect, kind, args, cnt)
+        parts = bound_parts(torch, kind, args, cnt)
         bms, by = bound_of(*parts)
         live = int((wmax > 0).sum())
         # the kernel against its plain version on a sample of this call
@@ -376,7 +770,7 @@ def main():
         err = compare_raw(f"phase4 call {i} {kind} kernel~plain on {n_pk} "
                           "main-path packets", kind, ref, got)
         s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
-        s_parts = bound_parts(torch, isect, kind, sub, s_cnt)
+        s_parts = bound_parts(torch, kind, sub, s_cnt)
         print(f"phase4 call {i} {kind}: {live} live rays, {int(cnt[0])} node "
               f"visits, {int(cnt[1])} leaf visits, {int(cnt[2])} tri tests; "
               f"{ms:.3f} ms vs bound {bms:.4f} ms ({by}); sample of {n_pk} "
@@ -393,6 +787,14 @@ def main():
         s["counts"] += cnt
     del rec
 
+    # ---- phases 5 and 6: the scheduler and the training step ---------------
+    sched, sched_launches = phase5_scheduler(torch, np, scene, cam, isect, dev,
+                                             smi)
+    slot, sched_any = sched["nearest"], sched["anyhit"]
+    train, train_launches = phase6_train(torch, scene, cam, cfg, isect, dev, smi)
+    by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
+                   "train": train_launches[k]} for k in launches}
+
     kernels = []
     for kind, name, replaces in (
         ("nearest", "nearest_kernel", "spray_tpu/kernels/traverse.py:379"),
@@ -407,7 +809,7 @@ def main():
               f"({fby}); samples ({s['s_rays']} rays over {s['calls']} calls) "
               f"{s['s_ms']:.3f} ms vs plain {s['s_plain_ms']:.3f} ms, bound "
               f"{bms:.4f} ms ({by}); card {smi}", flush=True)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "spray_tpu_torch/kernels/csrc/traverse.cu",
             "replaces": replaces, "launches": launches[name],
@@ -419,7 +821,43 @@ def main():
             "frame_tri_tests": int(s["counts"][2]),
             "sample": f"{SAMPLE_PACKETS} live packets of each main-path call "
                       f"({s['s_rays']} rays), full pages",
-        })
+            "launches_by_path": by_path[name],
+        }
+        if kind == "anyhit":
+            # its one-entry domain lists on the scheduler path, held against
+            # the plain version there too
+            a = sched_any
+            entry["max_abs_err"] = max(s["s_err"], a["s_err"])
+            entry["scheduler"] = {
+                "launches": sched_launches[name], "max_abs_err": a["s_err"],
+                "ms": a["s_ms"], "plain_ms": a["s_plain_ms"],
+                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+                "frame_ms": a["ms"], "frame_bound_ms": a["frame_bound_ms"],
+                "frame_bound_by": a["frame_bound_by"],
+                "frame_launches": a["calls"],
+                "frame_tri_tests": int(a["counts"][2]),
+                "sample": f"{SLOT_SAMPLE_PACKETS} live packets and one dead "
+                          f"packet of {a['s_calls']} calls of one "
+                          f"config4_noprefetch frame ({a['s_rays']} rays)",
+            }
+        kernels.append(entry)
+    kernels.append({
+        "name": "nearest_slot_kernel", "route": "cuda",
+        "source": "spray_tpu_torch/kernels/csrc/traverse.cu",
+        "replaces": "spray_tpu/kernels/traverse.py:281",
+        "launches": sched_launches["nearest_slot_kernel"],
+        "max_abs_err": slot["s_err"], "ms": slot["s_ms"],
+        "plain_ms": slot["s_plain_ms"], "bound_ms": slot["bound_ms"],
+        "bound_by": slot["bound_by"], "library_ms": None,
+        "frame_ms": slot["ms"], "frame_bound_ms": slot["frame_bound_ms"],
+        "frame_bound_by": slot["frame_bound_by"], "frame_launches": slot["calls"],
+        "frame_tri_tests": int(slot["counts"][2]),
+        "sample": f"{SLOT_SAMPLE_PACKETS} live packets and one dead packet of "
+                  f"{slot['s_calls']} calls of one config4_noprefetch frame "
+                  f"({slot['s_rays']} rays)",
+        "launches_by_path": by_path["nearest_slot_kernel"],
+    })
+    print(json.dumps({"scheduler": slot["configs"], "train": train}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

@@ -102,6 +102,22 @@ def moller_trumbore(ro, rd, v0, e1, e2):
 
 
 def face_normals(verts, faces):
-    """(F, 3) geometric unit normals."""
-    tv = verts[faces.reshape(-1).long()].reshape(faces.shape[0], 3, 3)
+    """(F, 3) geometric unit normals.  The vertex gather is index_select,
+    whose backward adds with atomics (see integrators.wavefront.pgather)."""
+    tv = torch.index_select(verts, 0, faces.reshape(-1).long())
+    tv = tv.reshape(faces.shape[0], 3, 3)
     return normalize(cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]))
+
+
+def ray_aabb(ro_inv_o, inv_d, lo, hi, tmin, tmax):
+    """Slab test.  ro_inv_o = ro * inv_d (precomputed); returns (t_entry, hit).
+
+    lo/hi: (..., 3) box corners.  Robust to inf*0 via min/max ordering.
+    """
+    t0 = lo * inv_d - ro_inv_o
+    t1 = hi * inv_d - ro_inv_o
+    tlo = torch.minimum(t0, t1)
+    thi = torch.maximum(t0, t1)
+    t_entry = torch.maximum(tlo.amax(dim=-1), tmin)
+    t_exit = torch.minimum(thi.amin(dim=-1), tmax)
+    return t_entry, t_entry <= t_exit

@@ -44,11 +44,16 @@ def make_render_fn(scene, camera, cfg, intersector, with_stats=False,
 
 
 def render_device(scene, camera, cfg, intersector=None, device=None):
-    """Render a frame on `device` -> (H, W, 3) float32 numpy image."""
+    """Render a frame on `device` -> (H, W, 3) float32 numpy image.
+    Host-driven intersectors (the out-of-core scheduler, which runs
+    residency I/O between epochs) get the eager per-sample loop."""
     from ..render import default_intersector  # noqa: PLC0415
 
     device = resolve_device(device)
     if intersector is None:
         intersector = default_intersector(scene, device=device)
+    if getattr(intersector, "host_driven", False):
+        img = wavefront.render(scene, camera, cfg, intersector, device)
+        return img.cpu().numpy()
     fn = make_render_fn(scene, camera, cfg, intersector, device=device)
     return fn(wavefront.make_scene_arrays(scene, device)).cpu().numpy()

@@ -30,10 +30,21 @@ def scene_offset_eps(scene):
     return np.float32(max(diag, 1e-6) * 1e-4)
 
 
+def pgather(table, idx):
+    """Rows table[idx] of a parameter table, -1 reading the last row as
+    indexing does.  Gathered with index_select, whose backward adds with
+    atomics: the backward of advanced indexing sorts the indices and walks
+    each run of one index serially, and a wavefront has runs of hundreds of
+    thousands (every miss lane reads row -1, every ray on the floor reads
+    the floor's row), which made it most of the bench training step."""
+    idx = idx.long()
+    return torch.index_select(table, 0, torch.where(idx < 0, idx + table.shape[0], idx))
+
+
 def _shade_prep(o, d, hits, normals, eps):
     """Hit point (offset along the facing normal) + facing normal.  Miss
     lanes get a benign finite t (1.0); their values are masked downstream."""
-    n = normals[hits.prim.long()]
+    n = pgather(normals, hits.prim)
     sgn = torch.where(geom.dot(n, d) < 0, 1.0, -1.0).to(n.dtype)
     n = n * sgn[..., None]
     t_safe = torch.where(hits.valid, hits.t, torch.ones_like(hits.t))
@@ -93,9 +104,10 @@ def _sample_light_point(lights, u_pick, u1, u2):
     su = torch.sqrt(u1)
     b1 = (su * (1.0 - u2))[..., None]
     b2 = (su * u2)[..., None]
-    y = lights["v0"][idx] + b1 * lights["e1"][idx] + b2 * lights["e2"][idx]
-    weight = lights["area"][idx] * float(num)
-    return y, lights["normal"][idx], lights["Le"][idx], weight
+    y = (pgather(lights["v0"], idx) + b1 * pgather(lights["e1"], idx)
+         + b2 * pgather(lights["e2"], idx))
+    weight = pgather(lights["area"], idx) * float(num)
+    return y, pgather(lights["normal"], idx), pgather(lights["Le"], idx), weight
 
 
 def _path_trace(o, d, pixel_ids, sample_idx, albedo, emission, normals, eps,
@@ -122,7 +134,7 @@ def _path_trace(o, d, pixel_ids, sample_idx, albedo, emission, normals, eps,
         if not nee or bounce == 0:
             # with NEE, emission after the first hit is counted by the light
             # samples
-            radiance = radiance + _masked(hit, throughput * emission[prim])
+            radiance = radiance + _masked(hit, throughput * pgather(emission, prim))
         if bounce == cfg.bounces:
             break
         p, nrm = _shade_prep(o, d, hits, normals, eps)
@@ -146,13 +158,14 @@ def _path_trace(o, d, pixel_ids, sample_idx, albedo, emission, normals, eps,
                 p, wi, torch.where(front, dist * (1.0 - 1e-3), torch.zeros_like(dist))
             )
             geo = cos_s * cos_l / torch.clamp(d2, min=1e-12) * pick_w
-            contrib = throughput * albedo[prim] * INV_PI * le * geo[..., None]
+            contrib = (throughput * pgather(albedo, prim) * INV_PI * le
+                       * geo[..., None])
             radiance = radiance + _masked(front & ~occ, contrib)
         u1, u2 = rng.uniform2(cfg.seed, pixel_ids, sample_idx, bounce, rng.BSDF)
         local = geom.cosine_hemisphere(u1, u2)
         new_d = geom.local_to_world(local, nrm)
         throughput = throughput * torch.where(
-            hit[..., None], albedo[prim], torch.ones_like(throughput))
+            hit[..., None], pgather(albedo, prim), torch.ones_like(throughput))
         alive = hit & (throughput.amax(dim=-1) > 0.0)
         o = torch.where(hit[..., None], p, o)
         d = torch.where(hit[..., None], new_d, d)
@@ -177,7 +190,7 @@ def _ambient_occlusion(o, d, pixel_ids, sample_idx, albedo, normals, eps,
         occ = intersector.occluded(p, ao_d, radius)
         vis = vis + torch.where(occ, 0.0, 1.0)
     vis = vis * (1.0 / max(cfg.ao_samples, 1))
-    col = albedo[hits.prim.long()] * vis[..., None]
+    col = pgather(albedo, hits.prim) * vis[..., None]
     return torch.where(hits.valid[..., None], col, background), nrays
 
 
@@ -193,7 +206,7 @@ def make_light_arrays(vertices, faces, emission, light_ids):
         return None
     lid = torch.as_tensor(light_ids, device=vertices.device)
     f = faces[lid].long()
-    tv = vertices[f.reshape(-1)].reshape(-1, 3, 3)
+    tv = pgather(vertices, f.reshape(-1)).reshape(-1, 3, 3)
     v0 = tv[:, 0]
     e1 = tv[:, 1] - tv[:, 0]
     e2 = tv[:, 2] - tv[:, 0]
@@ -202,7 +215,7 @@ def make_light_arrays(vertices, faces, emission, light_ids):
     area = 0.5 * nlen
     normal = nvec / torch.clamp(nlen, min=1e-12)[..., None]
     return {"v0": v0, "e1": e1, "e2": e2, "normal": normal,
-            "Le": emission[lid], "area": area}
+            "Le": pgather(emission, lid), "area": area}
 
 
 def make_scene_arrays(scene, device):
@@ -225,3 +238,18 @@ def make_scene_arrays(scene, device):
         "lights": make_light_arrays(t(scene.vertices), t(scene.faces, np.int64),
                                     emission, light_ids_static(scene)),
     }
+
+
+def render(scene, camera, cfg, intersector, device):
+    """Full frame, one wavefront per sample in plain pixel order, averaged
+    over cfg.spp: the eager loop of host-driven intersectors (the
+    out-of-core scheduler).  Returns the (H, W, 3) image tensor."""
+    npix = camera.width * camera.height
+    scene_arrays = make_scene_arrays(scene, device)
+    ids = torch.arange(npix, dtype=torch.int64, device=device)
+    acc = torch.zeros((npix, 3), dtype=torch.float32, device=device)
+    for s in range(cfg.spp):
+        acc = acc + sample_wavefront(scene_arrays, camera, cfg, intersector,
+                                     s, ids)
+    img = acc * (1.0 / cfg.spp)
+    return img.reshape(camera.height, camera.width, 3)

@@ -34,6 +34,9 @@ _SIGNATURES = {
     # ... same up to c, then out_occ, counters, stream
     "spray_anyhit": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                      _I, _I, _I, _P, _P, _P],
+    # bucket, n_dom, then as spray_nearest
+    "spray_nearest_slot": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                           _I, _I, _I, _P, _P, _P, _P],
 }
 
 _libs = {}

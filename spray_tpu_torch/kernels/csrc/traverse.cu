@@ -19,6 +19,7 @@
 //   w      (D, Nc, 4, 3C) f32  Woop transforms, column blocks [u | v | w]
 // Rays are SoA in packet order: o, d (N, 3), tmin, tmax (N,), N = P * packet.
 // order (P, R) i32 lists each packet's domains front to back, -1 ends it.
+// A bucket map (P,) i32 instead names ONE page per packet, -1 = dead packet.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -259,6 +260,47 @@ anyhit_kernel(const int* __restrict__ order, int n_rounds, int packet,
     flush_counts(counters, cnt);
 }
 
+// Replaces the Pallas kernel spray_tpu/kernels/traverse.py `_nearest_kernel`
+// (`_nearest_body`): ONE domain per packet, chosen by the (P,) bucket map,
+// as the out-of-core epoch slots and the single-domain intersector launch
+// it.  Its contract differs from nearest_kernel's in two ways, both the TPU
+// kernel's own: the code is domain-local (cluster * C + row), and a dead
+// packet (bucket < 0) writes t = 0 and code = -1 on every lane, where a
+// live packet's lane without a hit keeps its tmax.
+// Bound on the H100: as nearest_kernel, the FP32 arithmetic of the
+// ray-triangle tests over 67 TFLOP/s; the slot's pages are read once per
+// ray that reaches them, far fewer bytes than that work's operations.
+// First, unoptimised design: one thread per ray, the same per-thread
+// traversal as nearest_kernel; a dead packet's threads only store.
+__global__ void __launch_bounds__(SPRAY_BLOCK)
+nearest_slot_kernel(const int* __restrict__ bucket, int n_dom, int packet,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ tmin,
+                    const float* __restrict__ tmax, int n, Pages pg,
+                    float* __restrict__ out_t, int* __restrict__ out_code,
+                    unsigned long long* __restrict__ counters) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int dom = bucket[i / packet];
+    if (dom < 0) {  // dead packet
+        out_t[i] = 0.f;
+        out_code[i] = -1;
+        return;
+    }
+    if (dom >= n_dom) __trap();  // a bucket names a page the call lacks
+    float best_t = tmax[i];
+    int best_code = -1;
+    Counts cnt = {0, 0, 0};
+    if (best_t > 0.f) {
+        const Ray r = load_ray(o, d, tmin, i);
+        traverse_domain<false>(pg, dom, r, best_t, best_code, cnt);
+    }
+    out_t[i] = best_t;
+    // traverse_domain carries the global code (dom * Nc + cid) * C + row
+    out_code[i] = best_code >= 0 ? best_code - dom * pg.nc * pg.c : -1;
+    flush_counts(counters, cnt);
+}
+
 }  // namespace
 
 extern "C" {
@@ -290,6 +332,22 @@ int spray_anyhit(const int* order, int n_rounds, int packet, const float* o,
     const int blocks = (n + SPRAY_BLOCK - 1) / SPRAY_BLOCK;
     anyhit_kernel<<<blocks, SPRAY_BLOCK, 0, (cudaStream_t)stream>>>(
         order, n_rounds, packet, o, d, tmin, tmax, n, pg, out_occ, counters);
+    return (int)cudaGetLastError();
+}
+
+// bucket (P,) i32: the page index of each packet, -1 for a dead packet;
+// n_dom: the number of pages (D) behind bounds / meta / w.
+int spray_nearest_slot(const int* bucket, int n_dom, int packet,
+                       const float* o, const float* d, const float* tmin,
+                       const float* tmax, int n, const float* bounds,
+                       const int* meta, const float* w, int nn, int nc, int c,
+                       float* out_t, int* out_code,
+                       unsigned long long* counters, void* stream) {
+    Pages pg = {bounds, meta, w, nn, nc, c};
+    const int blocks = (n + SPRAY_BLOCK - 1) / SPRAY_BLOCK;
+    nearest_slot_kernel<<<blocks, SPRAY_BLOCK, 0, (cudaStream_t)stream>>>(
+        bucket, n_dom, packet, o, d, tmin, tmax, n, pg, out_t, out_code,
+        counters);
     return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,8 @@ from ..core.types import Hits
 from ..domains.partition import median_split_assign
 from . import traverse
 from .cluster_bvh import CLUSTER, ClusterBVH, build_cluster_bvh
-from .common import round_up
+from .common import pad_rays
+from .traverse import PACKET
 
 MAX_DOMAIN_TRIS = 1 << 17  # ~131K tris per domain (the reference's rule)
 MORTON_BITS = 4  # per axis -> 12-bit origin key in _live_partition
@@ -148,21 +149,6 @@ def _live_partition(win, d, o, world_lo, world_hi):
     return perm, inv
 
 
-def _pad_rays(o, d, tmin, tmax, packet):
-    """Pad a wavefront to whole packets with empty-window rays (d = 1,
-    tmin = 1, tmax = 0: they never hit, as in the reference)."""
-    n = o.shape[0]
-    npad = round_up(max(n, packet), packet) - n
-    if npad == 0:
-        return o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous()
-    return (
-        torch.cat([o, o.new_zeros(npad, 3)]),
-        torch.cat([d, d.new_ones(npad, 3)]),
-        torch.cat([tmin, tmin.new_ones(npad)]),
-        torch.cat([tmax, tmax.new_zeros(npad)]),
-    )
-
-
 def _packet_domain_order(o, d, tmin, tmax, dom_aabb, packet):
     """Per-packet front-to-back domain order.
 
@@ -199,14 +185,14 @@ class MultiDomainClusterIntersector:
     back by the CUDA kernels (or their plain versions on the CPU).
     """
 
-    def __init__(self, scene, n_domains=None, packet=256, cluster=None,
+    def __init__(self, scene, n_domains=None, packet=PACKET, cluster=None,
                  device=None):
         device = resolve_device(device)
         self._init(scene, build_cluster_domains(scene, n_domains, cluster),
                    packet, device)
 
     @classmethod
-    def from_pages(cls, scene, pages, packet=256, device=None):
+    def from_pages(cls, scene, pages, packet=PACKET, device=None):
         """Intersector over pages built elsewhere: the numpy dict of
         ``build_cluster_domains`` (this package's or the reference's)."""
         obj = cls.__new__(cls)
@@ -234,7 +220,7 @@ class MultiDomainClusterIntersector:
     def _args(self, o, d, tmin, tmax):
         """Packet-ordered padded rays + their domain lists."""
         perm, inv = _live_partition(tmax, d, o, self.world_lo, self.world_hi)
-        rays = _pad_rays(o[perm], d[perm], tmin[perm], tmax[perm], self.packet)
+        rays = pad_rays(o[perm], d[perm], tmin[perm], tmax[perm], self.packet)
         order, _ = _packet_domain_order(*rays, self.dom_aabb, self.packet)
         return (order, *rays, self.bounds, self.meta, self.w, self.packet,
                 self.depth), inv

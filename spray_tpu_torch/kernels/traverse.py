@@ -1,16 +1,21 @@
-"""Multi-domain cluster-BVH traversal: the two CUDA kernel wrappers, their
-plain PyTorch versions, and the hit-attribute recompute.
+"""Cluster-BVH traversal: the three CUDA kernel wrappers, their plain
+PyTorch versions, the hit-attribute recompute and the single-domain
+`ClusterBVHIntersector`.
 
 Counterpart of ``spray_tpu/kernels/traverse.py``.  The TPU kernels
-(`_nearest_fused_kernel`, `_anyhit_kernel`) walk a packet of rays on lanes
-through a shared stack; the port's CUDA kernels (``csrc/traverse.cu``) give
-each ray its own thread and stack.  Both keep the same result contract:
+(`_nearest_fused_kernel`, `_anyhit_kernel`, `_nearest_kernel`) walk a packet
+of rays on lanes through a shared stack; the port's CUDA kernels
+(``csrc/traverse.cu``) give each ray its own thread and stack.  They keep
+the same result contract:
 
   - nearest: the min over a cluster's rows of the packed key
         key = (bits(max(t, 0)) & ~127) | row        (INF_KEY on miss)
     t rebuilt rounded UP to the 128-ulp quantum, a hit taken only where
     t_up < best_t, front to back over the packet's domain list; the code
     carried is global: dom * (Nc * C) + cid * C + row.
+  - nearest_slot: the same against ONE domain per packet (a bucket map);
+    the code is domain-local, cid * C + row, and a dead packet (bucket -1)
+    returns t 0, code -1.
   - any-hit: any t in (tmin, tmax) over the packet's domain list.
 
 Each wrapper sends a CPU tensor to the plain version and launches the CUDA
@@ -23,10 +28,15 @@ import numpy as np
 import torch
 
 from ..core import geom
+from ..core.device import resolve_device
+from ..core.types import Hits
+from .cluster_bvh import build_cluster_bvh
+from .common import pad_rays
 
 INF_KEY = 0x7F800000  # +inf bit pattern: beats every finite key
+PACKET = 256  # rays per packet: one CUDA block (SPRAY_BLOCK in traverse.cu)
 # launches of each CUDA kernel by its wrapper (the plain versions never count)
-launches = {"nearest_kernel": 0, "anyhit_kernel": 0}
+launches = {"nearest_kernel": 0, "anyhit_kernel": 0, "nearest_slot_kernel": 0}
 
 
 def reset_launches():
@@ -157,12 +167,36 @@ def anyhit_reference(order, o, d, tmin, tmax, bounds, meta, w, packet):
     return occ
 
 
+def nearest_slot_reference(bucket, o, d, tmin, tmax, bounds, meta, w, packet):
+    """Plain PyTorch version of `nearest_slot_kernel`: `nearest_reference`
+    over a one-entry domain list per packet, with the slot contract on top
+    (domain-local code; dead packet -> t 0, code -1)."""
+    t, code = nearest_reference(bucket[:, None], o, d, tmin, tmax, bounds,
+                                meta, w, packet)
+    dom = bucket.repeat_interleave(packet)
+    dead = dom < 0
+    per_dom = w.shape[1] * (w.shape[3] // 3)
+    code = torch.where(code >= 0, code - dom * per_dom, code)
+    return (torch.where(dead, torch.zeros_like(t), t),
+            torch.where(dead, torch.full_like(code, -1), code))
+
+
 # -------------------------------------------------------------- wrappers ----
 
+def live_buckets(win_pk):
+    """(P, packet) windows -> (P,) i32 bucket map: page 0, or -1 for a packet
+    no lane of which has a live window.  The single source of the
+    dead-packet sentinel."""
+    return torch.where((win_pk > 0).any(dim=1), 0, -1).to(torch.int32)
+
+
 def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
+    """Inputs of every wrapper; `order` is a (P, R) domain list, or the
+    (P,) bucket map of `nearest_slot`."""
     dev = o.device
+    sel = ("bucket", 1) if order.dim() == 1 else ("order", 2)
     want = [
-        ("order", order, torch.int32, 2), ("o", o, torch.float32, 2),
+        (sel[0], order, torch.int32, sel[1]), ("o", o, torch.float32, 2),
         ("d", d, torch.float32, 2), ("tmin", tmin, torch.float32, 1),
         ("tmax", tmax, torch.float32, 1), ("bounds", bounds, torch.float32, 4),
         ("meta", meta, torch.int32, 3), ("w", w, torch.float32, 4),
@@ -188,7 +222,7 @@ def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
         raise ValueError("w: want (D, Nc, 4, 3C)")
     if w.shape[3] // 3 > 128:
         raise ValueError("cluster size C must be <= 128 (7-bit row key)")
-    if order.shape[1] > n_dom:
+    if order.dim() == 2 and order.shape[1] > n_dom:
         raise ValueError("order has more rounds than domains")
 
 
@@ -207,10 +241,12 @@ def _launch(fn, order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
         raise ValueError("counters: want a (3,) int64 tensor on the card")
     n = o.shape[0]
     nn, nc, c = bounds.shape[1], w.shape[1], w.shape[3] // 3
+    # a domain list passes its rounds, a bucket map the number of pages
+    width = order.shape[1] if order.dim() == 2 else bounds.shape[0]
     stream = torch.cuda.current_stream(o.device).cuda_stream
     with torch.cuda.device(o.device):
         err = getattr(lib, fn)(
-            order.data_ptr(), order.shape[1], packet, o.data_ptr(),
+            order.data_ptr(), width, packet, o.data_ptr(),
             d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
             bounds.data_ptr(), meta.data_ptr(), w.data_ptr(), nn, nc, c,
             *[x.data_ptr() for x in outs],
@@ -242,6 +278,29 @@ def nearest(order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
         _launch("spray_nearest", order, o, d, tmin, tmax, bounds, meta, w,
                 packet, depth, (t, code), counters)
         launches["nearest_kernel"] += 1
+    return t, code
+
+
+def nearest_slot(bucket, o, d, tmin, tmax, bounds, meta, w, packet, depth,
+                 counters=None):
+    """Nearest hit of every ray against ONE domain per packet.
+
+    bucket (P,) i32: each packet's page index into bounds / meta / w, -1 for
+    a dead packet (`live_buckets`); other arguments as `nearest`.  Returns
+    (t (N,) f32 rounded-up hit distance or tmax, code (N,) i32 domain-local
+    code cluster * C + row or -1); a dead packet's lanes get t 0, code -1."""
+    _check(bucket, o, d, tmin, tmax, bounds, meta, w, packet)
+    if o.device.type == "cpu":
+        return nearest_slot_reference(bucket, o, d, tmin, tmax, bounds, meta,
+                                      w, packet)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    t = torch.empty_like(tmax)
+    code = torch.empty(tmax.shape, dtype=torch.int32, device=o.device)
+    if o.shape[0]:
+        _launch("spray_nearest_slot", bucket, o, d, tmin, tmax, bounds, meta,
+                w, packet, depth, (t, code), counters)
+        launches["nearest_slot_kernel"] += 1
     return t, code
 
 
@@ -286,3 +345,49 @@ def attrs_for_prims(v0, e1, e2, prim, o, d, t_kernel, tmax):
     t = torch.where(valid & ok, t, torch.where(valid, t_kernel, tmax))
     zero = torch.zeros_like(u)
     return t, torch.where(valid, u, zero), torch.where(valid, v, zero), valid
+
+
+class ClusterBVHIntersector:
+    """Drop-in intersector over ONE cluster BVH: `nearest_slot` for
+    intersect, `anyhit` with a one-entry domain list for occluded
+    (counterpart of ``spray_tpu.kernels.traverse.ClusterBVHIntersector``,
+    on the compact f32 pages)."""
+
+    def __init__(self, scene, cbvh=None, device=None):
+        device = resolve_device(device)
+        if cbvh is None:
+            cbvh = build_cluster_bvh(np.asarray(scene.vertices),
+                                     np.asarray(scene.faces))
+
+        def dev(x, dtype):
+            return torch.as_tensor(np.ascontiguousarray(x, dtype),
+                                   device=device)[None]
+
+        self.device = device
+        self.bounds = dev(cbvh.bounds, np.float32)
+        self.meta = dev(cbvh.meta, np.int32)
+        self.w = dev(cbvh.w, np.float32)
+        self.tri_ids = dev(np.asarray(cbvh.tri_ids).reshape(-1), np.int64)[0]
+        self.depth = tree_depth(np.asarray(cbvh.meta)[None])
+        self.v0, self.e1, self.e2 = tri_soa_from_scene(scene, device)
+
+    def _args(self, o, d, tmin, tmax):
+        rays = pad_rays(o, d, tmin, tmax, PACKET)
+        bucket = live_buckets(rays[3].view(-1, PACKET))
+        return (bucket, *rays, self.bounds, self.meta, self.w, PACKET,
+                self.depth)
+
+    def intersect(self, o, d, tmin, tmax):
+        n = o.shape[0]
+        t, code = nearest_slot(*self._args(o, d, tmin, tmax))
+        t, code = t[:n], code[:n]
+        prim = torch.where(code >= 0, self.tri_ids[torch.clamp(code, min=0)],
+                           -1).to(torch.int32)
+        t, u, v, valid = attrs_for_prims(self.v0, self.e1, self.e2, prim, o,
+                                         d, t, tmax)
+        return Hits(t=torch.where(valid, t, tmax), prim=prim, u=u, v=v,
+                    valid=valid)
+
+    def occluded(self, o, d, tmax):
+        bucket, *rest = self._args(o, d, torch.zeros_like(tmax), tmax)
+        return anyhit(bucket[:, None].contiguous(), *rest)[: o.shape[0]] != 0

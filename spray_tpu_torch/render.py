@@ -8,10 +8,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .core.config import RenderConfig
 from .core.device import resolve_device
+from .diff import grads_of, make_diff_render_fn
 from .integrators.device import make_render_fn
 from .integrators.wavefront import make_scene_arrays
 from .kernels.multidomain import MultiDomainClusterIntersector
@@ -34,13 +36,15 @@ def render(scene, camera, cfg: RenderConfig = RenderConfig(), intersector=None,
 
 @dataclasses.dataclass
 class Pipeline:
-    """A frame step for benchmarking.  run() -> (image, rays_traced) with the
-    device synchronised; rays_traced(out) is the count of actual trace
-    activations (the Grays/s numerator)."""
+    """A frame step for benchmarking and training.  run() returns the step's
+    outputs with the device synchronised: (image, rays_traced) forward,
+    (loss, grads, rays_traced) with backward; rays_traced(out) is the count
+    of actual trace activations (the Grays/s numerator)."""
 
     _fn: object
     _args: tuple
     device: torch.device
+    _stats_index: int = 1
 
     def run(self):
         out = self._fn(*self._args)
@@ -48,20 +52,40 @@ class Pipeline:
             torch.cuda.synchronize(self.device)
         return out
 
-    @staticmethod
-    def rays_traced(out):
-        return int(out[1])
+    def rays_traced(self, out):
+        return int(out[self._stats_index])
+
+
+LOSS_WEIGHTS = (0.4, 0.8, 1.3)  # per-channel weights of the bench loss
 
 
 def make_pipeline(scene, camera, cfg: RenderConfig, backward=False,
                   intersector=None, device=None):
-    if backward:
-        raise NotImplementedError(
-            "the differentiable pipeline is not ported yet (forward only)"
-        )
+    """Forward frame step, or with backward the training step: loss =
+    mean(image * LOSS_WEIGHTS) and its gradients w.r.t. the scene's
+    vertices and albedo."""
     device = resolve_device(device)
     if intersector is None:
         intersector = default_intersector(scene, device=device)
-    fn = make_render_fn(scene, camera, cfg, intersector, with_stats=True,
-                        device=device)
-    return Pipeline(fn, (make_scene_arrays(scene, device),), device)
+    if not backward:
+        fn = make_render_fn(scene, camera, cfg, intersector, with_stats=True,
+                            device=device)
+        return Pipeline(fn, (make_scene_arrays(scene, device),), device)
+
+    render_fn = make_diff_render_fn(
+        scene, camera, cfg, make_intersector=lambda s: intersector,
+        with_stats=True, device=device)
+    w = torch.tensor(LOSS_WEIGHTS, dtype=torch.float32, device=device)
+
+    def step(params):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        img, nrays = render_fn(p)
+        loss = torch.mean(img * w)
+        return loss.detach(), grads_of(loss, p), nrays
+
+    params = {
+        k: torch.as_tensor(np.asarray(getattr(scene, k), np.float32),
+                           device=device)
+        for k in ("vertices", "albedo")
+    }
+    return Pipeline(step, (params,), device, _stats_index=2)

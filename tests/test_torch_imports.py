@@ -37,6 +37,8 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "spray_tpu_torch.kernels.multidomain" in res["mods"]
     assert "spray_tpu_torch.render" in res["mods"]
+    assert "spray_tpu_torch.sched.epochs" in res["mods"]
+    assert "spray_tpu_torch.diff" in res["mods"]
     assert res["bad"] == []
 
 
@@ -53,23 +55,38 @@ def test_sources_have_no_jax_import_lines():
 
 def test_entry_points_require_gpu(monkeypatch):
     """device=None means CUDA: with no card they raise, never run on CPU."""
+    from spray_tpu_torch.diff import make_diff_render_fn, render_grad
+    from spray_tpu_torch.integrators.device import render_device
     from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+    from spray_tpu_torch.kernels.traverse import ClusterBVHIntersector
     from spray_tpu_torch.render import make_pipeline, render
+    from spray_tpu_torch.residency.manager import ResidencyManager
+    from spray_tpu_torch.sched.epochs import OOCIntersector
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene = cornell_box()
     cam = make_camera(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0), up=(0, 1, 0),
                       fov_y_deg=40, width=8, height=8)
     cfg = RenderConfig(spp=1, bounces=1)
+    albedo = torch.as_tensor(scene.albedo)
     for call in (lambda: render(scene, cam, cfg),
                  lambda: make_pipeline(scene, cam, cfg),
-                 lambda: MultiDomainClusterIntersector(scene)):
+                 lambda: make_pipeline(scene, cam, cfg, backward=True),
+                 lambda: MultiDomainClusterIntersector(scene),
+                 lambda: ClusterBVHIntersector(scene),
+                 lambda: OOCIntersector(scene, n_domains=2, num_slots=1),
+                 lambda: ResidencyManager(2, lambda d: {}),
+                 lambda: make_diff_render_fn(scene, cam, cfg),
+                 lambda: render_grad(scene, cam, cfg, {"albedo": albedo}),
+                 lambda: render_device(scene, cam, cfg)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    with pytest.raises(NotImplementedError):
-        make_pipeline(scene, cam, cfg, backward=True, device="cpu")
     img = render(scene, cam, cfg, device="cpu")
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    pipe = make_pipeline(scene, cam, cfg, backward=True, device="cpu")
+    loss, grads, _ = pipe.run()
+    assert torch.isfinite(loss) and set(grads) == {"vertices", "albedo"}
+    assert all(torch.isfinite(g).all() for g in grads.values())
 
 
 def test_chip_smoke_fails_without_card():

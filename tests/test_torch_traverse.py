@@ -13,6 +13,7 @@ from spray_tpu.kernels.traverse import _rays_to_aug
 from spray_tpu.oracle.brute import BruteIntersector as JBrute
 from spray_tpu_torch.interop import scene_from_arrays
 from spray_tpu_torch.kernels import _build, traverse
+from spray_tpu_torch.kernels.common import pad_rays
 from spray_tpu_torch.kernels import multidomain as tmd
 from spray_tpu_torch.oracle.brute import BruteIntersector as TBrute
 
@@ -110,7 +111,7 @@ def test_live_partition_and_domain_order_equal():
         aug, _ = _rays_to_aug(*(jnp.asarray(a[perm]) for a in (o, d, tmin, tmax)),
                               packet)
         oj, ej = jmd._packet_domain_order(aug, jnp.asarray(aabb))
-        rays = tmd._pad_rays(*(torch.as_tensor(a[perm]) for a in (o, d, tmin, tmax)),
+        rays = pad_rays(*(torch.as_tensor(a[perm]) for a in (o, d, tmin, tmax)),
                              packet)
         # the padding rays: d = 1, tmin = 1, tmax = 0 (an empty window)
         assert (rays[1][n:] == 1).all() and (rays[2][n:] == 1).all()
@@ -174,7 +175,7 @@ def _one_triangle_pages():
 def _trace(o, d, tmin, tmax, occl=False):
     pages = _one_triangle_pages()
     n = len(o)
-    rays = tmd._pad_rays(*(torch.as_tensor(np.asarray(a, np.float32))
+    rays = pad_rays(*(torch.as_tensor(np.asarray(a, np.float32))
                            for a in (o, d, tmin, tmax)), 256)
     order = torch.zeros((rays[0].shape[0] // 256, 1), dtype=torch.int32)
     fn = traverse.anyhit if occl else traverse.nearest
