@@ -5,15 +5,24 @@
 
 Phases (each prints its lines; any failed check makes the run exit 1):
   1. the card's name and power limit; nvcc builds every kernel source of
-     spray_tpu_torch/kernels/csrc into build/kernels/;
+     spray_tpu_torch/kernels/csrc into build/kernels/, one nvcc per source,
+     all started together;
   2. kernel parity: each CUDA kernel against its plain PyTorch version and
-     the torch brute oracle, on a 41K-tri wisp scene (6 domains), 16,384
-     random rays plus the bounce-1 and shadow wavefronts of a small render;
-     the single-domain slot kernel through ClusterBVHIntersector on the
-     same scene, dead packets included;
+     the torch brute oracle, on a 40,962-tri wisp scene (6 domains, 41
+     supernodes), 16,384 random rays plus the bounce-1 and shadow wavefronts
+     of a small render, dead lanes and dead packets included: the traversal
+     kernels through the multi-domain intersector, the slot kernel through
+     ClusterBVHIntersector, the brute kernels through
+     PallasBruteIntersector, the visit kernels on the visit lists of real
+     BinnedIntersector and SweepIntersector calls (kept by a recording
+     proxy); the brute and visit kernels equal their plain versions bit
+     for bit;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
      through the plain versions (the PlainIntersector proxy), on the card,
-     and so are the loss and gradients of a 64x64 training step;
+     and so are the loss and gradients of a 64x64 training step; the frame
+     through every `routed` mode is byte-identical to the default's, and
+     through prefer="binned", "sweep" and PallasBruteIntersector equal to
+     it within the same tolerance;
   4. the forward path at full size: make_pipeline(backward=False) on
      wisp_cloud(n_blobs=8, tris_per_blob=131072, seed=3) (2,621,442 tris,
      21 domains), 512x512, spp 4, bounces 2, PT+NEE, seed 0: frame time,
@@ -31,11 +40,25 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      on sampled calls of that frame;
   6. the training step at full size: make_pipeline(backward=True) on the
      bench configuration of phase 4: step time, Grays/s fwd+bwd, peak
-     memory, loss and gradient norms.
+     memory, loss and gradient norms;
+  7. the alternate intersectors at full width, ALT_TIMED timed frames each:
+     the phase-4 frame through default_intersector(prefer="sweep") and
+     prefer="binned" (frame time, Grays/s, peak memory, visits, rounds or
+     chunks and host syncs per frame, every visit launch of one frame timed
+     against its bound, sampled runs of sampled launches of every trace
+     call (cut to their first VISIT_SAMPLE_LEN visits) held against the
+     plain versions, the image against phase 4's);
+     the same frame through routed="grid" (byte-identical image) and the
+     fused any-hit against the per-round form on the frame's two shadow
+     wavefronts (equal occlusion, times of both); PallasBruteIntersector
+     at 512x512, spp 4, bounces 2 on cornell_box() and on phase 2's wisp
+     scene (frame time, every brute launch of one frame against its bound,
+     sampled ray blocks against the plain versions, the image against the
+     default intersector's).
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The line before the last is the kernels JSON; the last line is
-{"ok": true, "device": {...}}.  Needs torch with CUDA and nvcc; imports
-nothing of JAX.
+after.  The line before the last is the kernels JSON (seven kernels); the
+last line is {"ok": true, "device": {...}}.  Needs torch with CUDA and
+nvcc; imports nothing of JAX.
 """
 
 import json
@@ -50,7 +73,25 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 TEST_OPS = 40  # arithmetic of one ray-triangle test (see traverse.cu)
 NODE_OPS = 8 * 22  # slab tests of one 8-wide node visit
 SAMPLE_PACKETS = 256  # live packets of each main-path call held against plain
+MT_OPS = 46  # arithmetic of one Möller–Trumbore test (csrc/mt.cuh)
+ALT_TIMED = 2  # timed frames of each alternate-intersector path, after a warm-up
+VISIT_SAMPLE_LAUNCHES = 3  # visit launches of each trace call held against plain
+VISIT_SAMPLE_RUNS = 32  # runs of each of those launches
+VISIT_SAMPLE_LEN = 48  # visits kept of each sampled run (the plain version
+# walks a run's visits one rank at a time: a sweep run can hold thousands)
+BRUTE_SAMPLE_BLOCKS = 32  # 256-ray blocks of each brute call held against plain
+TIE_PIXELS = 10000  # one pixel in this many may differ between hit-test formulas
 FAILED = []
+
+
+_T0 = [time.perf_counter()]
+
+
+def phase_done(name):
+    """Print the seconds since the previous call (the phase's wall time)."""
+    now = time.perf_counter()
+    print(f"{name} took {now - _T0[0]:.1f} s", flush=True)
+    _T0[0] = now
 
 
 def check(name, ok, detail=""):
@@ -589,6 +630,529 @@ def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
             "loss": float(loss), "grad_norms": norms, "profile": prof}, launches
 
 
+def kernel_modules():
+    from spray_tpu_torch.kernels import binned, brute, traverse
+
+    return traverse, brute, binned
+
+
+def reset_launches():
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def read_launches():
+    return {k: v for m in kernel_modules() for k, v in m.launches.items()}
+
+
+def compare_exact(tag, ref, got):
+    """Kernel vs plain outputs that must be bit-equal: tuples of tensors
+    (or one tensor); float outputs equal where finite and infinite in the
+    same places.  Returns the max abs difference over the float outputs."""
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    err, same = 0.0, True
+    for r, g in zip(ref, got):
+        if r.is_floating_point():
+            fin = r.isfinite() & g.isfinite()
+            same &= bool((r.isfinite() == g.isfinite()).all())
+            same &= bool((r[~fin] == g[~fin]).all())
+            if fin.any():
+                err = max(err, float((r[fin] - g[fin]).abs().max()))
+        else:
+            same &= bool((r == g).all())
+    check(f"{tag} kernel == plain (max_abs_err 0, codes and occlusion equal)",
+          same and err == 0.0, f"(max abs err {err:.3g} over {ref[0].numel()} lanes)")
+    return err
+
+
+def image_close(tag, img, ref, np, max_px):
+    """Images within atol 2e-3, rtol 1e-3 on all but max_px pixels."""
+    img, ref = (x.cpu().numpy() if hasattr(x, "cpu") else x for x in (img, ref))
+    far = ~np.isclose(img, ref, atol=2e-3, rtol=1e-3)
+    n_px = int(far.any(axis=2).sum())
+    check(f"{tag} (atol 2e-3, rtol 1e-3; at most {max_px} pixels outside)",
+          n_px <= max_px,
+          f"(max abs {float(np.abs(img - ref).max()):.3g}, {n_px} pixels outside, "
+          f"mean {img.mean():.6f} vs {ref.mean():.6f})")
+    return n_px
+
+
+class VisitRecorder:
+    """While installed, keeps the arguments of every nearest_visits and
+    anyhit_visits call of the binned and sweep tracers, grouped by the
+    intersect / occluded call that made them (`mark` opens a group)."""
+
+    NAMES = {"nearest": "nearest_visits", "anyhit": "anyhit_visits"}
+
+    def __init__(self):
+        from spray_tpu_torch.kernels import binned, sweep
+
+        self.mods = (binned, sweep)
+        self.inner = {k: getattr(binned, n) for k, n in self.NAMES.items()}
+        self.groups = []
+
+    def mark(self, kind):
+        self.groups.append((kind, []))
+
+    def __enter__(self):
+        def recorder(kind):
+            def record(*args, **kw):
+                assert self.groups and self.groups[-1][0] == kind
+                self.groups[-1][1].append(args)
+                return self.inner[kind](*args, **kw)
+            return record
+
+        for kind, name in self.NAMES.items():
+            for mod in self.mods:
+                setattr(mod, name, recorder(kind))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, name in self.NAMES.items():
+            for mod in self.mods:
+                setattr(mod, name, self.inner[kind])
+
+
+class Marked:
+    """Intersector proxy that opens a VisitRecorder group per call."""
+
+    def __init__(self, inner, recorder):
+        self.inner, self.recorder = inner, recorder
+
+    def intersect(self, o, d, tmin, tmax):
+        self.recorder.mark("nearest")
+        return self.inner.intersect(o, d, tmin, tmax)
+
+    def occluded(self, o, d, tmax):
+        self.recorder.mark("anyhit")
+        return self.inner.occluded(o, d, tmax)
+
+
+def visit_fns(kind):
+    from spray_tpu_torch.kernels import binned
+
+    if kind == "nearest":
+        return binned.nearest_visits, binned.nearest_visits_reference
+    return binned.anyhit_visits, binned.anyhit_visits_reference
+
+
+def visit_bound_parts(torch, kind, args, tests):
+    """(ms for the operations at the fp32 peak, ms for the bytes at the
+    memory rate, gated clusters) of one visit launch.  Operations: MT_OPS
+    per ray-triangle test; nearest tests every lane of a packet against
+    every triangle of every gated cluster of its run, any-hit the tests
+    the kernel counted (an occluded lane stops).  Bytes: each gated
+    cluster's 9 x 128 floats, per run one packet of rays and its state in
+    and out, and the visit list."""
+    cmask, first, last = args[2], args[3], args[4]
+    is_last = last != 0
+    opened = (first != 0).cumsum(0) - (is_last.cumsum(0) - is_last.long())
+    bits = ((cmask[:, None] >> torch.arange(8, device=cmask.device)) & 1).sum(dim=1)
+    clusters = int(bits[opened > 0].sum())
+    runs = int((first != 0).sum())
+    if kind == "nearest":
+        tests = clusters * 128 * 128
+    per_ray = 28 + 16 if kind == "nearest" else 32 + 8
+    nbytes = clusters * 128 * 36 + runs * 128 * per_ray + cmask.numel() * 20
+    return tests * MT_OPS / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3, clusters
+
+
+def sample_runs(torch, np, vlist, k):
+    """The visit list cut to k runs spread evenly over its runs that gate a
+    cluster (all of them if fewer), each cut to its first VISIT_SAMPLE_LEN
+    visits (a shorter run of the same packet: the `last` flag moves to the
+    cut); rays and state stay whole."""
+    cols = [x.cpu().numpy().copy() for x in vlist]
+    cmask, first, last = cols[2], cols[3], cols[4]
+    starts, ends = np.nonzero(first)[0], np.nonzero(last)[0]
+    end_of = ends[np.minimum(np.searchsorted(ends, starts), len(ends) - 1)]
+    live = [(a, min(b, a + VISIT_SAMPLE_LEN - 1))
+            for a, b in zip(starts, end_of) if cmask[a:b + 1].any()]
+    if len(live) > k:
+        live = [live[i] for i in np.linspace(0, len(live) - 1, k).astype(int)]
+    if not live:
+        return None
+    last[[b for _, b in live]] = 1
+    idx = np.concatenate([np.arange(a, b + 1) for a, b in live])
+    return tuple(torch.as_tensor(np.ascontiguousarray(c[idx]),
+                                 device=vlist[0].device) for c in cols)
+
+
+def visit_kernel_stats(torch, np, tag, groups, smi):
+    """One frame's visit launches, grouped by trace call: every launch timed
+    against its bound, and VISIT_SAMPLE_LAUNCHES launches of each trace
+    call held against the plain version on VISIT_SAMPLE_RUNS runs each.
+    Returns stats by kind."""
+    dev = groups[0][1][0][0].device
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    keys = ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms", "s_ops_ms",
+            "s_bytes_ms", "s_err")
+    st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "visits": 0,
+              "clusters": 0, "s_launches": 0, "s_runs": 0}
+          for k in ("nearest", "anyhit")}
+
+    def tests_of(fn, kind, args):
+        if kind == "nearest":
+            return None
+        counter.zero_()
+        fn(*args, counter=counter)
+        return int(counter)
+
+    for gi, (kind, calls) in enumerate(groups):
+        fn, plain = visit_fns(kind)
+        s = st[kind]
+        for args in calls:
+            tests = tests_of(fn, kind, args)
+            _, ms = timed_once(torch, lambda: fn(*args))
+            ops_ms, bytes_ms, clusters = visit_bound_parts(torch, kind, args, tests)
+            s["ms"] += ms
+            s["ops_ms"] += ops_ms
+            s["bytes_ms"] += bytes_ms
+            s["launches"] += 1
+            s["visits"] += args[0].numel()
+            s["clusters"] += clusters
+        pick = np.linspace(0, len(calls) - 1,
+                           min(VISIT_SAMPLE_LAUNCHES, len(calls))).astype(int)
+        for i in sorted(set(pick.tolist())):
+            sub_list = sample_runs(torch, np, calls[i][:5], VISIT_SAMPLE_RUNS)
+            if sub_list is None:
+                continue
+            sub = (*sub_list, *calls[i][5:])
+            got = fn(*sub)
+            ref, plain_ms = timed_once(torch, lambda: plain(*sub))
+            runs = int((sub[3] != 0).sum())
+            s["s_err"] = max(s["s_err"], compare_exact(
+                f"{tag} call {gi} {kind} launch {i} ({runs} runs)", ref, got))
+            ops_ms, bytes_ms, _ = visit_bound_parts(torch, kind, sub,
+                                                    tests_of(fn, kind, sub))
+            s["s_ms"] += cuda_ms(torch, lambda: fn(*sub))
+            s["s_plain_ms"] += plain_ms
+            s["s_ops_ms"] += ops_ms
+            s["s_bytes_ms"] += bytes_ms
+            s["s_launches"] += 1
+            s["s_runs"] += runs
+    for kind, s in st.items():
+        name = f"binned_{kind}_kernel"
+        check(f"{tag} {name} held against its plain version", s["s_launches"] > 0,
+              f"({s['s_launches']} launches, {s['s_runs']} runs)")
+        fb, fby = bound_of(s["ops_ms"], s["bytes_ms"])
+        sb, sby = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
+        s.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
+        print(f"{tag} {name}: one frame {s['ms']:.3f} ms in {s['launches']} "
+              f"launches, {s['visits']} visits, {s['clusters']} gated clusters, "
+              f"bound {fb:.4f} ms ({fby}); samples ({s['s_runs']} runs over "
+              f"{s['s_launches']} launches) {s['s_ms']:.3f} ms vs plain "
+              f"{s['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max abs err "
+              f"{s['s_err']:.3g}; card {smi}", flush=True)
+    return st
+
+
+def timed_frames(torch, pipe, n):
+    """(warm-up s, [frame s] * n, last output) of a pipeline; launch counts
+    are set to 0 after the warm-up frame."""
+    t0 = time.perf_counter()
+    pipe.run()
+    warm = time.perf_counter() - t0
+    reset_launches()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.run()  # synchronises the card before returning
+        times.append(time.perf_counter() - t0)
+    return warm, times, out
+
+
+def phase2_alternates(torch, np, small, oracle, waves, dev):
+    """Small-scene parity of the four new kernels: each against its plain
+    version (bit-equal) and, through its intersector, against the torch
+    brute oracle; the visit kernels on the visit lists of real
+    BinnedIntersector and SweepIntersector calls."""
+    from spray_tpu_torch.kernels import binned, brute, sweep
+
+    pb = brute.PallasBruteIntersector(small, device=dev)
+    for tag, kind, rays in waves:
+        wo, wd, wmin, wmax = (x.contiguous() for x in rays)
+        if kind == "nearest":
+            got = brute.brute_nearest(pb.tri9, pb.ids, wo, wd, wmin, wmax)
+            ref = brute.brute_nearest_reference(pb.tri9, pb.ids, wo, wd, wmin, wmax)
+            compare_exact(f"phase2 {tag} brute_nearest_kernel", ref, got)
+            compare_hits(f"phase2 {tag} PallasBrute kernel~brute oracle",
+                         oracle.intersect(wo, wd, wmin, wmax),
+                         pb.intersect(wo, wd, wmin, wmax))
+        else:
+            got = brute.brute_anyhit(pb.tri9, pb.ids, wo, wd, wmin, wmax)
+            ref = brute.brute_anyhit_reference(pb.tri9, pb.ids, wo, wd, wmin, wmax)
+            compare_exact(f"phase2 {tag} brute_anyhit_kernel", ref, got)
+            a, b = oracle.occluded(wo, wd, wmax), pb.occluded(wo, wd, wmax)
+            check(f"phase2 {tag} PallasBrute anyhit~brute oracle occlusion equal",
+                  bool((a == b).all()), f"({int((a != b).sum())} differ)")
+    for cls in (binned.BinnedIntersector, sweep.SweepIntersector):
+        isect = cls(small, device=dev)
+        rec = VisitRecorder()
+        marked = Marked(isect, rec)
+        with rec:
+            for tag, kind, (wo, wd, wmin, wmax) in waves:
+                name = f"phase2 {tag} {cls.__name__}"
+                if kind == "nearest":
+                    compare_hits(f"{name} kernel~brute oracle",
+                                 oracle.intersect(wo, wd, wmin, wmax),
+                                 marked.intersect(wo, wd, wmin, wmax))
+                else:
+                    a, b = oracle.occluded(wo, wd, wmax), marked.occluded(wo, wd, wmax)
+                    check(f"{name} anyhit~brute oracle occlusion equal",
+                          bool((a == b).all()), f"({int((a != b).sum())} differ)")
+        print(f"phase2 {cls.__name__}: {isect.sbox.shape[0]} supernodes, loop "
+              f"counts over {len(waves)} calls {isect.stats}", flush=True)
+        for (kind, calls), (tag, _, _) in zip(rec.groups, waves):
+            fn, plain = visit_fns(kind)
+            pick = np.linspace(0, len(calls) - 1, min(4, len(calls))).astype(int)
+            for i in sorted(set(pick.tolist())):
+                compare_exact(f"phase2 {tag} {cls.__name__} binned_{kind}_kernel "
+                              f"launch {i} ({calls[i][0].numel()} visits)",
+                              plain(*calls[i]), fn(*calls[i]))
+
+
+def phase3_alternates(torch, np, small, cam64, cfg64, sisect, img_k, dev):
+    """The 64x64 PT+NEE frame through every routed mode (byte-identical to
+    the default's) and through the binned, sweep and brute-kernel
+    intersectors (the hit tests differ in formula: to the tolerance)."""
+    from spray_tpu_torch.kernels.brute import PallasBruteIntersector
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+    from spray_tpu_torch.render import default_intersector, render
+
+    for routed in ("grid", "global", True, False):
+        x = MultiDomainClusterIntersector(small, n_domains=sisect.n_domains,
+                                          device=dev, routed=routed)
+        img = render(small, cam64, cfg64, intersector=x, device=dev)
+        check(f"phase3 64x64 routed={routed!r} byte-identical to routed='fused'",
+              img.tobytes() == img_k.tobytes(),
+              f"(max abs {float(np.abs(img - img_k).max()):.3g})")
+    for tag, x in (
+        ("prefer='binned'", default_intersector(small, "binned", device=dev)),
+        ("prefer='sweep'", default_intersector(small, "sweep", device=dev)),
+        ("PallasBruteIntersector", PallasBruteIntersector(small, device=dev)),
+    ):
+        img = render(small, cam64, cfg64, intersector=x, device=dev)
+        image_close(f"phase3 64x64 {tag} ~ default intersector", img, img_k, np,
+                    img_k[..., 0].size // TIE_PIXELS)
+
+
+def phase7_visit_path(torch, np, prefer, scene, cam, cfg, img_ref, dev, smi):
+    """The forward bench frame through prefer="sweep" or "binned".  Returns
+    (frame numbers, visit-kernel stats by kind, launch counts)."""
+    from spray_tpu_torch.kernels import binned
+    from spray_tpu_torch.render import default_intersector, make_pipeline
+
+    tag = f"phase7 {prefer}"
+    t0 = time.perf_counter()
+    isect = default_intersector(scene, prefer=prefer, device=dev)
+    t_build = time.perf_counter() - t0
+    pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=isect,
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    launches = read_launches()
+    frame, rays = min(times), pipe.rays_traced(out)
+    peak = torch.cuda.max_memory_allocated()
+    # the profiled frame doubles as the recorded one: a proxy keeps the
+    # arguments of its visit launches for the per-kernel numbers below
+    rec = VisitRecorder()
+    rpipe = make_pipeline(scene, cam, cfg, backward=False,
+                          intersector=Marked(isect, rec), device=dev)
+    isect.stats = binned.new_stats()  # the loops' counts of one frame
+    with rec:
+        prof = profile_top(torch, f"{tag} forward frame", rpipe.run)
+    loop = dict(isect.stats)
+    print(f"{tag}: {type(isect).__name__}, {isect.sbox.shape[0]} supernodes, "
+          f"tri9 {tuple(isect.tri9.shape)}, built in {t_build:.2f} s; frame times "
+          f"{[round(t, 4) for t in times]} s; min {frame:.4f} s (warm-up "
+          f"{warm:.2f} s); rays_traced {rays}; {rays / frame / 1e9:.6f} Grays/s; "
+          f"peak memory {peak / 2**30:.3f} GiB; per frame: {loop['calls']} trace "
+          f"calls, {loop['rounds']} rounds or chunks, {loop['visits']} visits "
+          f"launched, {loop['syncs']} host syncs "
+          f"({loop['syncs'] / max(1, loop['calls']):.1f} per call); launches over "
+          f"{ALT_TIMED} frames {launches}; card {smi}", flush=True)
+    img = out[0]
+    check(f"{tag} image finite and nonzero",
+          bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          f"(mean {float(img.mean()):.6f})")
+    n_px = image_close(f"{tag} image ~ the default intersector's", img, img_ref,
+                       np, img_ref[..., 0].numel() // TIE_PIXELS)
+    for k in ("binned_nearest_kernel", "binned_anyhit_kernel"):
+        check(f"{tag} {k} launched on the path", launches[k] > 0, f"({launches[k]})")
+    kst = visit_kernel_stats(torch, np, tag, rec.groups, smi)
+    res = {"frame_s": frame, "warm_s": warm, "build_s": t_build,
+           "rays_traced": rays, "grays_per_sec": rays / frame / 1e9,
+           "peak_gib": peak / 2**30, "per_frame": loop, "pixels_outside": n_px,
+           "profile": prof}
+    return res, kst, launches
+
+
+def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
+                  dev, smi):
+    """The forward bench frame through routed="grid" (one launch per round),
+    and the fused any-hit against the per-round form on the default
+    frame's shadow wavefronts.  Returns (numbers, launch counts)."""
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+    from spray_tpu_torch.render import make_pipeline
+
+    grid = MultiDomainClusterIntersector.from_pages(scene, pages, device=dev,
+                                                    routed="grid")
+    pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=grid,
+                         device=dev)
+    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    launches = read_launches()
+    frame, rays = min(times), pipe.rays_traced(out)
+    prof = profile_top(torch, "phase7 routed='grid' forward frame", pipe.run)
+    print(f"phase7 routed='grid': frame times {[round(t, 4) for t in times]} s; "
+          f"min {frame:.4f} s (warm-up {warm:.2f} s); rays_traced {rays}; "
+          f"{rays / frame / 1e9:.6f} Grays/s; launches over {ALT_TIMED} frames "
+          f"{launches}; card {smi}", flush=True)
+    check("phase7 routed='grid' image byte-identical to routed='fused'",
+          bool((out[0] == img_ref).all()),
+          f"(max abs {float((out[0] - img_ref).abs().max()):.3g})")
+    for k in ("nearest_slot_kernel", "anyhit_kernel"):
+        check(f"phase7 routed='grid' {k} launched on the path", launches[k] > 0,
+              f"({launches[k]})")
+    forms = []
+    for i, (_, wo, wd, wmin, wmax) in enumerate(shadows):
+        args, _ = isect._args(wo, wd, wmin, wmax)
+        a, b = isect._routed_anyhit_fused(args), grid._rounds_anyhit(args)
+        check(f"phase7 shadow call {i} fused any-hit == per-round any-hit",
+              bool((a == b).all()), f"({int((a != b).sum())} differ of {a.numel()})")
+        ms_f = cuda_ms(torch, lambda: isect._routed_anyhit_fused(args))
+        ms_g = cuda_ms(torch, lambda: grid._rounds_anyhit(args))
+        forms.append({"fused_ms": ms_f, "per_round_ms": ms_g})
+        print(f"phase7 shadow call {i}: {int((wmax > 0).sum())} live rays; fused "
+              f"any-hit (1 launch) {ms_f:.3f} ms, per-round any-hit "
+              f"({grid.n_domains} launches) {ms_g:.3f} ms; card {smi}", flush=True)
+    return {"frame_s": frame, "warm_s": warm, "rays_traced": rays,
+            "grays_per_sec": rays / frame / 1e9, "anyhit_forms": forms,
+            "profile": prof}, launches
+
+
+def brute_kernel_stats(torch, np, tag, isect, calls, smi):
+    """One frame's brute launches: every call timed against its bound, and
+    BRUTE_SAMPLE_BLOCKS blocks of 256 rays of each held against the plain
+    version.  Returns stats by kind."""
+    from spray_tpu_torch.kernels import brute
+
+    dev = isect.tri9.device
+    n_tris = isect.tri9.shape[0]
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    keys = ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms", "s_ops_ms",
+            "s_bytes_ms", "s_err")
+    st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "s_rays": 0}
+          for k in ("nearest", "anyhit")}
+
+    def parts(kind, rays):
+        """Bound of one call: nearest tests every live ray against every
+        triangle, any-hit the tests the kernel counted; bytes: the table,
+        the rays, the outputs."""
+        if kind == "nearest":
+            tests = int((rays[3] > rays[2]).sum()) * n_tris
+        else:
+            counter.zero_()
+            brute.brute_anyhit(isect.tri9, isect.ids, *rays, counter=counter)
+            tests = int(counter)
+        n = rays[0].shape[0]
+        nbytes = n_tris * 40 + n * (32 + (16 if kind == "nearest" else 4))
+        return tests * MT_OPS / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+
+    for ci, (kind, *rays) in enumerate(calls):
+        rays = tuple(x.contiguous() for x in rays)
+        fn = brute.brute_nearest if kind == "nearest" else brute.brute_anyhit
+        plain = (brute.brute_nearest_reference if kind == "nearest"
+                 else brute.brute_anyhit_reference)
+        s = st[kind]
+        _, ms = timed_once(torch, lambda: fn(isect.tri9, isect.ids, *rays))
+        ops_ms, bytes_ms = parts(kind, rays)
+        s["ms"] += ms
+        s["ops_ms"] += ops_ms
+        s["bytes_ms"] += bytes_ms
+        s["launches"] += 1
+        n_blocks = rays[0].shape[0] // 256
+        blocks = torch.linspace(0, n_blocks - 1, min(BRUTE_SAMPLE_BLOCKS, n_blocks),
+                                device=dev).long()
+        idx = (blocks[:, None] * 256 + torch.arange(256, device=dev)).view(-1)
+        sub = tuple(x[idx].contiguous() for x in rays)
+        got = fn(isect.tri9, isect.ids, *sub)
+        ref, plain_ms = timed_once(torch,
+                                   lambda: plain(isect.tri9, isect.ids, *sub))
+        s["s_err"] = max(s["s_err"], compare_exact(
+            f"{tag} call {ci} brute_{kind}_kernel on {idx.numel()} rays", ref, got))
+        ops_ms, bytes_ms = parts(kind, sub)
+        s["s_ms"] += cuda_ms(torch, lambda: fn(isect.tri9, isect.ids, *sub))
+        s["s_plain_ms"] += plain_ms
+        s["s_ops_ms"] += ops_ms
+        s["s_bytes_ms"] += bytes_ms
+        s["s_rays"] += idx.numel()
+    for kind, s in st.items():
+        fb, fby = bound_of(s["ops_ms"], s["bytes_ms"])
+        sb, sby = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
+        s.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
+        print(f"{tag} brute_{kind}_kernel: one frame {s['ms']:.3f} ms in "
+              f"{s['launches']} launches against {n_tris} tris, bound {fb:.4f} ms "
+              f"({fby}); samples ({s['s_rays']} rays) {s['s_ms']:.3f} ms vs plain "
+              f"{s['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max abs err "
+              f"{s['s_err']:.3g}; card {smi}", flush=True)
+    return st
+
+
+def phase7_brute(torch, np, tag, scene, cam, cfg, dev, smi):
+    """A 512x512 spp-4 frame through PallasBruteIntersector on a small
+    scene.  Returns (numbers, brute-kernel stats by kind, launch counts)."""
+    from spray_tpu_torch.kernels.brute import PallasBruteIntersector
+    from spray_tpu_torch.render import default_intersector, make_pipeline
+
+    tag = f"phase7 brute {tag}"
+    isect = PallasBruteIntersector(scene, device=dev)
+    pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=isect,
+                         device=dev)
+    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    launches = read_launches()
+    frame, rays = min(times), pipe.rays_traced(out)
+    prof = profile_top(torch, f"{tag} forward frame", pipe.run)
+    base = default_intersector(scene, device=dev)
+    ref = make_pipeline(scene, cam, cfg, backward=False, intersector=base,
+                        device=dev).run()[0]
+    print(f"{tag}: {scene.num_faces} tris; frame times "
+          f"{[round(t, 4) for t in times]} s; min {frame:.4f} s (warm-up "
+          f"{warm:.2f} s); rays_traced {rays}; {rays / frame / 1e9:.6f} Grays/s; "
+          f"launches over {ALT_TIMED} frames {launches}; card {smi}", flush=True)
+    n_px = image_close(f"{tag} image ~ {type(base).__name__}'s", out[0], ref, np,
+                       ref[..., 0].numel() // TIE_PIXELS)
+    check(f"{tag} image finite and nonzero", bool(torch.isfinite(out[0]).all())
+          and float(out[0].mean()) > 0, f"(mean {float(out[0].mean()):.6f})")
+    for k in ("brute_nearest_kernel", "brute_anyhit_kernel"):
+        check(f"{tag} {k} launched on the path", launches[k] > 0, f"({launches[k]})")
+    rec = Recorder(isect)
+    make_pipeline(scene, cam, cfg, backward=False, intersector=rec,
+                  device=dev).run()
+    kst = brute_kernel_stats(torch, np, tag, isect, rec.calls, smi)
+    return ({"tris": scene.num_faces, "frame_s": frame, "warm_s": warm,
+             "rays_traced": rays, "grays_per_sec": rays / frame / 1e9,
+             "pixels_outside": n_px, "profile": prof}, kst, launches)
+
+
+def kernel_entry(name, source, replaces, launches, s, by_path, sample, extra=None):
+    """One entry of the kernels JSON from a stats dict with the sample keys
+    (s_ms, s_plain_ms, s_err, bound_ms, bound_by) and the frame keys."""
+    entry = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": s["s_err"], "ms": s["s_ms"],
+        "plain_ms": s["s_plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": None, "frame_ms": s["ms"],
+        "frame_bound_ms": s["frame_bound_ms"],
+        "frame_bound_by": s["frame_bound_by"], "frame_launches": s["launches"],
+        "sample": sample, "launches_by_path": by_path,
+    }
+    entry.update(extra or {})
+    return entry
+
+
 def main():
     try:
         import torch
@@ -610,7 +1174,7 @@ def main():
     from spray_tpu_torch.core.config import RenderConfig
     from spray_tpu_torch.integrators.device import make_render_fn
     from spray_tpu_torch.integrators.wavefront import make_scene_arrays
-    from spray_tpu_torch.io.scenes import wisp_cloud
+    from spray_tpu_torch.io.scenes import cornell_box, wisp_cloud
     from spray_tpu_torch.kernels import _build, traverse
     from spray_tpu_torch.kernels.multidomain import (
         MultiDomainClusterIntersector, build_cluster_domains,
@@ -630,13 +1194,22 @@ def main():
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    for src in sorted(_build.CSRC.glob("*.cu")):
+    # one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build_one(src):
         t0 = time.perf_counter()
         _, log = _build.build(src.stem)
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build {src.name} into {_build.BUILD_DIR.relative_to(ROOT)}: "
-              f"{time.perf_counter() - t0:.2f} s; " + " | ".join(regs), flush=True)
-    traverse.reset_launches()
+        return src, log, time.perf_counter() - t0
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for src, log, secs in pool.map(build_one, sources):
+            regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+            print(f"build {src.name} into {_build.BUILD_DIR.relative_to(ROOT)}: "
+                  f"{secs:.2f} s; " + " | ".join(regs), flush=True)
+    reset_launches()
+    phase_done("phase1 (build)")
 
     # ---- phase 2: kernel parity on a small scene ----------------------------
     small = wisp_cloud(n_blobs=8, tris_per_blob=2048, seed=3)
@@ -680,6 +1253,13 @@ def main():
     tdead[1024:4096] = 0.0  # packets 4-15 dead
     phase2_slot(torch, traverse, small, brute,
                 [("random", (o, d, tmin, tdead)), ("bounce1", bounce1[1:])], dev)
+    phase2_alternates(torch, np, small, brute,
+                      waves + [("random_dead", "nearest", (o, d, tmin, tdead)),
+                               ("random_dead", "anyhit", (o, d, tmin,
+                                                          tdead.clamp(max=1e30)))],
+                      dev)
+
+    phase_done("phase2 (kernel parity)")
 
     # ---- phase 3: path parity -------------------------------------------------
     img_k = render(small, cam64, cfg64, intersector=sisect, device=dev)
@@ -691,6 +1271,9 @@ def main():
           bool(np.allclose(img_k, img_p, atol=2e-3, rtol=1e-3)),
           f"(max abs {err:.3g}, mean {img_k.mean():.5f})")
     phase3_grads(torch, make_pipeline, small, cam64, cfg64, sisect, dev)
+    phase3_alternates(torch, np, small, cam64, cfg64, sisect, img_k, dev)
+
+    phase_done("phase3 (path parity)")
 
     # ---- phase 4: the main path at full size --------------------------------
     t0 = time.perf_counter()
@@ -700,7 +1283,6 @@ def main():
     pages = build_cluster_domains(scene)
     t_pages = time.perf_counter() - t0
     isect = MultiDomainClusterIntersector.from_pages(scene, pages, device=dev)
-    del pages
     print(f"phase4: scene {scene.num_faces} tris in {t_scene:.2f} s; "
           f"{isect.n_domains} domains, pages w {tuple(isect.w.shape)}, "
           f"tree depth {isect.depth}, built in {t_pages:.2f} s", flush=True)
@@ -785,15 +1367,40 @@ def main():
         s["s_rays"] += sub[1].shape[0]
         s["calls"] += 1
         s["counts"] += cnt
+    shadows = [c for c in rec.calls if c[0] == "anyhit"]
     del rec
+
+    phase_done("phase4 (forward frame)")
 
     # ---- phases 5 and 6: the scheduler and the training step ---------------
     sched, sched_launches = phase5_scheduler(torch, np, scene, cam, isect, dev,
                                              smi)
     slot, sched_any = sched["nearest"], sched["anyhit"]
+    phase_done("phase5 (scheduler)")
     train, train_launches = phase6_train(torch, scene, cam, cfg, isect, dev, smi)
+    phase_done("phase6 (training step)")
+
+    # ---- phase 7: the alternate intersectors at full width ------------------
+    visit, visit_frames, visit_launches = {}, {}, {}
+    for prefer in ("sweep", "binned"):
+        visit_frames[prefer], visit[prefer], visit_launches[prefer] = (
+            phase7_visit_path(torch, np, prefer, scene, cam, cfg, img, dev, smi))
+        phase_done(f"phase7 ({prefer})")
+    routed, routed_launches = phase7_routed(torch, np, scene, pages, cam, cfg,
+                                            isect, img, shadows, dev, smi)
+    del pages, shadows
+    phase_done("phase7 (routed)")
+    brute_k, brute_frames, brute_launches = {}, {}, {}
+    for tag, bscene in (("cornell", cornell_box()), ("wisp41k", small)):
+        bcam = make_camera(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0.0),
+                           up=(0, 1, 0), fov_y_deg=40, width=512,
+                           height=512) if tag == "cornell" else cam
+        brute_frames[tag], brute_k[tag], brute_launches[tag] = phase7_brute(
+            torch, np, tag, bscene, bcam, cfg, dev, smi)
+    phase_done("phase7 (brute)")
     by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
-                   "train": train_launches[k]} for k in launches}
+                   "train": train_launches[k],
+                   "routed_grid": routed_launches[k]} for k in launches}
 
     kernels = []
     for kind, name, replaces in (
@@ -824,8 +1431,15 @@ def main():
             "launches_by_path": by_path[name],
         }
         if kind == "anyhit":
-            # its one-entry domain lists on the scheduler path, held against
-            # the plain version there too
+            # The full (P, R) lists of the forward path stand for the TPU's
+            # fused any-hit (`_anyhit_fused_kernel`, traverse.py:535); the
+            # one-entry lists of the scheduler and of the per-round routed
+            # modes for its per-round `_anyhit_kernel` (traverse.py:658),
+            # held against the plain version there too.
+            entry["replaces"] = ("spray_tpu/kernels/traverse.py:535 (full "
+                                 "domain lists), spray_tpu/kernels/"
+                                 "traverse.py:658 (one-entry lists)")
+            entry["anyhit_forms_ms"] = routed["anyhit_forms"]
             a = sched_any
             entry["max_abs_err"] = max(s["s_err"], a["s_err"])
             entry["scheduler"] = {
@@ -857,7 +1471,52 @@ def main():
                   f"({slot['s_rays']} rays)",
         "launches_by_path": by_path["nearest_slot_kernel"],
     })
-    print(json.dumps({"scheduler": slot["configs"], "train": train}), flush=True)
+    binned_src = "spray_tpu_torch/kernels/csrc/binned.cu"
+    brute_src = "spray_tpu_torch/kernels/csrc/brute.cu"
+    for kind, line in (("nearest", 303), ("anyhit", 343)):
+        name = f"binned_{kind}_kernel"
+        sw, bn = visit["sweep"][kind], visit["binned"][kind]
+        kernels.append(kernel_entry(
+            name, binned_src, f"spray_tpu/kernels/binned.py:{line}",
+            sum(v[name] for v in visit_launches.values()), sw,
+            {p: v[name] for p, v in visit_launches.items()},
+            f"{VISIT_SAMPLE_RUNS} runs (their first {VISIT_SAMPLE_LEN} visits) "
+            f"of {VISIT_SAMPLE_LAUNCHES} launches of each trace call of one "
+            f"sweep frame ({sw['s_runs']} runs)",
+            {"max_abs_err": max(sw["s_err"], bn["s_err"]),
+             "frame_visits": sw["visits"], "frame_clusters": sw["clusters"],
+             "binned": {"max_abs_err": bn["s_err"], "ms": bn["s_ms"],
+                        "plain_ms": bn["s_plain_ms"], "bound_ms": bn["bound_ms"],
+                        "bound_by": bn["bound_by"], "frame_ms": bn["ms"],
+                        "frame_bound_ms": bn["frame_bound_ms"],
+                        "frame_bound_by": bn["frame_bound_by"],
+                        "frame_launches": bn["launches"],
+                        "frame_visits": bn["visits"],
+                        "frame_clusters": bn["clusters"]}}))
+    for kind, line in (("nearest", 57), ("anyhit", 84)):
+        name = f"brute_{kind}_kernel"
+        w, c = brute_k["wisp41k"][kind], brute_k["cornell"][kind]
+        kernels.append(kernel_entry(
+            name, brute_src, f"spray_tpu/kernels/brute.py:{line}",
+            sum(v[name] for v in brute_launches.values()), w,
+            {p: v[name] for p, v in brute_launches.items()},
+            f"{BRUTE_SAMPLE_BLOCKS} blocks of 256 rays of each call of one "
+            f"frame on {brute_frames['wisp41k']['tris']} tris ({w['s_rays']} rays)",
+            {"max_abs_err": max(w["s_err"], c["s_err"]),
+             "cornell": {"max_abs_err": c["s_err"], "ms": c["s_ms"],
+                         "plain_ms": c["s_plain_ms"], "bound_ms": c["bound_ms"],
+                         "bound_by": c["bound_by"], "frame_ms": c["ms"],
+                         "frame_bound_ms": c["frame_bound_ms"],
+                         "frame_bound_by": c["frame_bound_by"],
+                         "frame_launches": c["launches"]}}))
+    for k in kernels:
+        check(f"kernels line: {k['name']} launched on its path", k["launches"] > 0,
+              f"({k['launches']})")
+    print(json.dumps({"scheduler": slot["configs"], "train": train,
+                      "alternates": {"sweep": visit_frames["sweep"],
+                                     "binned": visit_frames["binned"],
+                                     "routed_grid": routed,
+                                     "brute": brute_frames}}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

@@ -2,7 +2,11 @@
 so both packages can run on identical scenes, cameras and cluster pages.
 
 Cluster pages go through
-``spray_tpu_torch.kernels.multidomain.MultiDomainClusterIntersector.from_pages``.
+``spray_tpu_torch.kernels.multidomain.MultiDomainClusterIntersector.from_pages``,
+a binned build through ``binned_arrays`` and
+``BinnedIntersector.from_arrays`` / ``SweepIntersector.from_arrays``, and a
+brute triangle table through ``brute_arrays`` and
+``PallasBruteIntersector.from_arrays``.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.types import Camera, Scene
+from .kernels.binned import BinnedScene
 
 
 def scene_from_arrays(vertices, faces, albedo, emission):
@@ -30,3 +35,20 @@ def camera_from_arrays(eye, lower_left, du, dv, width, height):
         width=int(width),
         height=int(height),
     )
+
+
+def binned_arrays(src):
+    """The six arrays of a binned build (`BinnedScene.FIELDS`) as numpy,
+    from any object that has them as attributes: a `BinnedScene` or a
+    binned / sweep intersector of either package."""
+    dtypes = {"tri_ids": np.int32}
+    return {
+        k: np.array(getattr(src, k), dtypes.get(k, np.float32))  # a copy
+        for k in BinnedScene.FIELDS
+    }
+
+
+def brute_arrays(src):
+    """(tri9 (T, 9) f32, ids (T,) i32) as numpy from a brute-kernel
+    intersector of either package."""
+    return np.array(src.tri9, np.float32), np.array(src.ids, np.int32)

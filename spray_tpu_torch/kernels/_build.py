@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with a
 plain C interface at first use, under ``build/kernels/`` at the root of the
-checkout (named by a hash of the source, so an edited source rebuilds), and
-loaded with ctypes.  Nothing here runs at import time: the CPU tests import
+checkout (named by a hash of the source and the ``*.cuh`` headers, so an
+edited source rebuilds), and loaded with ctypes.  Nothing here runs at import time: the CPU tests import
 every module on a machine with no nvcc.
 """
 
@@ -37,6 +37,20 @@ _SIGNATURES = {
     # bucket, n_dom, then as spray_nearest
     "spray_nearest_slot": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                            _I, _I, _I, _P, _P, _P, _P],
+    # tri9, ids, num_tris, o, d, tmin, tmax, n, out_t, out_prim, out_u,
+    # out_v, stream
+    "spray_brute_nearest": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _P],
+    # ... same up to n, then out_occ, tests, stream
+    "spray_brute_anyhit": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    # pkt, sn, cmask, first, last, n_visits, o, d, tmin, n_packets, tri9,
+    # n_super, best_t, best_code (read and updated in place), stream
+    "spray_binned_nearest": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I,
+                             _P, _P, _P],
+    # ... same up to tmin, then tmax, n_packets, tri9, n_super, occ (read
+    # and updated in place), tests, stream
+    "spray_binned_anyhit": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
+                            _I, _P, _P, _P],
 }
 
 _libs = {}
@@ -63,6 +77,8 @@ def build(name):
     raises with nvcc's output on error."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include them
+        digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""
@@ -88,3 +104,42 @@ def load(name):
                 getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def launch(name, fn, device, *args):
+    """Call launcher `fn` of csrc/<name>.cu on `device`'s current stream
+    (appended as the last argument) and raise on a refused launch."""
+    import torch  # noqa: PLC0415
+
+    lib = load(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+
+
+def check_counter(counter, device):
+    """`counter`'s address, or None: an optional (1,) int64 tensor on
+    `device` that a kernel adds its work count to."""
+    import torch  # noqa: PLC0415
+
+    if counter is None:
+        return None
+    if (counter.dtype != torch.int64 or counter.shape != (1,)
+            or counter.device != device):
+        raise ValueError("counter: want a (1,) int64 tensor beside the rays")
+    return counter.data_ptr()
+
+
+def check_tensors(device, want):
+    """Raise unless every (name, tensor, dtype, ndim) of `want` is a
+    contiguous tensor of that dtype and rank on `device`."""
+    for name, x, dtype, ndim in want:
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, rays on {device}")
+        if x.dtype != dtype or x.dim() != ndim:
+            raise ValueError(f"{name}: want {ndim}-d {dtype}, got "
+                             f"{x.dim()}-d {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

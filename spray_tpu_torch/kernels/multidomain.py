@@ -1,16 +1,29 @@
 """Multi-domain intersector over the CUDA cluster kernels.
 
-Counterpart of ``spray_tpu/kernels/multidomain.py`` with ``routed="fused"``:
-the scene is split into domains of at most MAX_DOMAIN_TRIS triangles, each
-with its own cluster BVH, stacked to identical padded page shapes.  A
-wavefront is stably re-ordered (`_live_partition`: live rays grouped by
-direction octant and origin-Morton cell, dead lanes last), cut into packets,
-and each packet gets its front-to-back domain list (`_packet_domain_order`).
-The nearest kernel walks every listed domain per ray in one launch; the
-any-hit kernel does the same for shadow rays.  The TPU path's grid
-schedules (`_bucket_perm`, the rounds-major schedule, the dead-tail
-collapse) and its pre-stacked bf16 pages are TPU artifacts the port drops:
-it keeps the compact f32 (4, 3C) pages.
+Counterpart of ``spray_tpu/kernels/multidomain.py``: the scene is split into
+domains of at most MAX_DOMAIN_TRIS triangles, each with its own cluster BVH,
+stacked to identical padded page shapes.  A wavefront is stably re-ordered
+(`_live_partition`: live rays grouped by direction octant and origin-Morton
+cell, dead lanes last), cut into packets, and each packet gets its
+front-to-back domain list (`_packet_domain_order`).  Every ``routed`` mode
+of the reference is here:
+
+  - ``"fused"`` (default): `traverse.nearest` walks every listed domain per
+    ray in ONE launch; `occluded` is one `traverse.anyhit` launch over the
+    whole list (`_routed_anyhit_fused`);
+  - ``"grid"``, ``"global"``, ``True``: D rounds; in round r each packet
+    traces domain ``order[:, r]`` through `traverse.nearest_slot` with the
+    carried best t as its window, then min-combines; any-hit runs
+    `traverse.anyhit` on one-entry lists per round.  The three differ in
+    the reference only in how packets are moved for the TPU's page DMAs
+    (per-round data sort, one global sort, a grid permutation with a
+    collapsed dead tail); on the card rays stay in place and the modes
+    share one per-round loop, selectable so results can be held equal;
+  - ``False``: every domain over every packet, in domain order.
+
+The TPU path's grid schedules (`_bucket_perm`, the rounds-major schedule,
+the dead-tail collapse) and its pre-stacked bf16 pages are TPU artifacts the
+port drops: it keeps the compact f32 (4, 3C) pages.
 """
 
 from __future__ import annotations
@@ -180,29 +193,48 @@ def _packet_domain_order(o, d, tmin, tmax, dom_aabb, packet):
     return order.to(torch.int32).contiguous(), entry_sorted
 
 
+ROUTED_MODES = ("fused", "grid", "global", True, False)
+
+
+def _round_buckets(win, dom, packet):
+    """(P,) i32 bucket map of one round: the packet's domain, or -1 where
+    the packet has no domain this round or no lane with a live window
+    (the reference's ``live_buckets(win_pk, dom)``)."""
+    any_live = (win.view(-1, packet) > 0).any(dim=1)
+    return torch.where(any_live & (dom >= 0), dom, -1).to(torch.int32)
+
+
 class MultiDomainClusterIntersector:
     """Drop-in intersector: D per-domain cluster BVHs traversed front to
     back by the CUDA kernels (or their plain versions on the CPU).
+
+    routed: "fused" (default; one launch for all domain rounds), "grid",
+    "global" or True (one launch per round; equal results), False (every
+    domain over every packet) -- see the module docstring.
     """
 
     def __init__(self, scene, n_domains=None, packet=PACKET, cluster=None,
-                 device=None):
+                 device=None, routed="fused"):
         device = resolve_device(device)
         self._init(scene, build_cluster_domains(scene, n_domains, cluster),
-                   packet, device)
+                   packet, device, routed)
 
     @classmethod
-    def from_pages(cls, scene, pages, packet=PACKET, device=None):
+    def from_pages(cls, scene, pages, packet=PACKET, device=None,
+                   routed="fused"):
         """Intersector over pages built elsewhere: the numpy dict of
         ``build_cluster_domains`` (this package's or the reference's)."""
         obj = cls.__new__(cls)
-        obj._init(scene, pages, packet, resolve_device(device))
+        obj._init(scene, pages, packet, resolve_device(device), routed)
         return obj
 
-    def _init(self, scene, pages, packet, device):
+    def _init(self, scene, pages, packet, device, routed="fused"):
         def dev(x, dtype):
             return torch.as_tensor(np.ascontiguousarray(x, dtype), device=device)
 
+        if routed not in ROUTED_MODES:
+            raise ValueError(f"routed: want one of {ROUTED_MODES}, got {routed!r}")
+        self.routed = routed
         self.device = device
         self.packet = packet
         aabb = np.asarray(pages["aabb"], np.float32)
@@ -214,6 +246,7 @@ class MultiDomainClusterIntersector:
         self.meta = dev(pages["meta"], np.int32)
         self.w = dev(pages["w"], np.float32)
         self.tri_ids = dev(np.asarray(pages["tri_ids"]).reshape(-1), np.int64)
+        self.per_dom = self.w.shape[1] * (self.w.shape[3] // 3)  # codes per domain
         self.depth = traverse.tree_depth(pages["meta"])
         self.v0, self.e1, self.e2 = traverse.tri_soa_from_scene(scene, device)
 
@@ -227,7 +260,8 @@ class MultiDomainClusterIntersector:
 
     def _hits(self, o, d, tmax, args, inv, t, code):
         """Hits in the caller's ray order from the packet-ordered (t, code)
-        of `nearest` on `_args`' output."""
+        of `nearest` on `_args`' output (code: global, dom * per_dom +
+        domain-local)."""
         n = o.shape[0]
         prim = torch.where(
             code >= 0, self.tri_ids[torch.clamp(code, min=0).long()], -1
@@ -240,10 +274,74 @@ class MultiDomainClusterIntersector:
         return Hits(t=torch.where(valid, t, tmax), prim=bp, u=u, v=v,
                     valid=valid)
 
+    def _round_lists(self, order):
+        """The (P,) domain of every packet for each launch of a per-round
+        mode: the columns of its front-to-back list, or with routed=False
+        every domain in turn."""
+        if not self.routed:
+            return [torch.full_like(order[:, 0], dom)
+                    for dom in range(self.n_domains)]
+        return [order[:, r].contiguous() for r in range(order.shape[1])]
+
+    def _rounds_nearest(self, args):
+        """Per-round nearest: one `nearest_slot` launch per round with the
+        carried best t baked into the window, min-combined with
+        ``(code >= 0) & (t < best_t)``.  Returns packet-ordered (t, global
+        code) as `traverse.nearest` does."""
+        order, o, d, tmin, tmax, *pages = args
+        best_t = tmax.clone()
+        best_code = torch.full_like(tmax, -1, dtype=torch.int32)
+        for dom in self._round_lists(order):
+            dom_ray = dom.repeat_interleave(self.packet)
+            win = torch.where(dom_ray >= 0, best_t, 0.0)
+            bucket = _round_buckets(win, dom, self.packet)
+            t, code = traverse.nearest_slot(bucket, o, d, tmin, win, *pages)
+            # a dead packet returns t 0, code -1: it never updates
+            upd = (code >= 0) & (t < best_t)
+            best_t = torch.where(upd, t, best_t)
+            best_code = torch.where(
+                upd, torch.clamp(dom_ray, min=0) * self.per_dom + code,
+                best_code)
+        return best_t, best_code
+
+    def _rounds_anyhit(self, args):
+        """Per-round any-hit: one `anyhit` launch per round on one-entry
+        domain lists; occluded lanes and packets whose round is dead get an
+        empty window."""
+        order, o, d, tmin, tmax, *pages = args
+        occ = torch.zeros_like(tmax, dtype=torch.int32)
+        for dom in self._round_lists(order):
+            live = (dom.repeat_interleave(self.packet) >= 0) & (occ == 0)
+            win = torch.where(live, tmax, 0.0)
+            bucket = _round_buckets(win, dom, self.packet)
+            hit = traverse.anyhit(bucket[:, None].contiguous(), o, d, tmin,
+                                  win, *pages)
+            occ = occ | torch.where(
+                bucket.repeat_interleave(self.packet) >= 0, hit, 0)
+        return occ
+
+    def _routed_anyhit_fused(self, args):
+        """Fused any-hit: one `anyhit` launch over every packet's whole
+        domain list, the occlusion carried per ray inside the kernel; 0
+        where a packet was never live."""
+        order, _, _, _, tmax, *_ = args
+        pkt_live = (tmax.view(-1, self.packet) > 0).any(dim=1)
+        ever = pkt_live & (order >= 0).any(dim=1)
+        occ = traverse.anyhit(*args)
+        return torch.where(ever.repeat_interleave(self.packet), occ, 0)
+
     def intersect(self, o, d, tmin, tmax):
         args, inv = self._args(o, d, tmin, tmax)
-        return self._hits(o, d, tmax, args, inv, *traverse.nearest(*args))
+        if self.routed == "fused":
+            t, code = traverse.nearest(*args)
+        else:
+            t, code = self._rounds_nearest(args)
+        return self._hits(o, d, tmax, args, inv, t, code)
 
     def occluded(self, o, d, tmax):
         args, inv = self._args(o, d, torch.zeros_like(tmax), tmax)
-        return traverse.anyhit(*args)[: o.shape[0]][inv] != 0
+        if self.routed == "fused":
+            occ = self._routed_anyhit_fused(args)
+        else:
+            occ = self._rounds_anyhit(args)
+        return occ[: o.shape[0]][inv] != 0

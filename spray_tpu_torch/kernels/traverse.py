@@ -1,12 +1,13 @@
-"""Cluster-BVH traversal: the three CUDA kernel wrappers, their plain
-PyTorch versions, the hit-attribute recompute and the single-domain
-`ClusterBVHIntersector`.
+"""Cluster-BVH traversal: the wrappers of the three CUDA traversal kernels,
+their plain PyTorch versions, the hit-attribute recompute and the
+single-domain `ClusterBVHIntersector`.  (The port's other four kernels, the
+brute and the binned-visit ones, live in `brute.py` and `binned.py`.)
 
 Counterpart of ``spray_tpu/kernels/traverse.py``.  The TPU kernels
-(`_nearest_fused_kernel`, `_anyhit_kernel`, `_nearest_kernel`) walk a packet
-of rays on lanes through a shared stack; the port's CUDA kernels
-(``csrc/traverse.cu``) give each ray its own thread and stack.  They keep
-the same result contract:
+(`_nearest_fused_kernel`, `_anyhit_fused_kernel`, `_anyhit_kernel`,
+`_nearest_kernel`) walk a packet of rays on lanes through a shared stack;
+the port's CUDA kernels (``csrc/traverse.cu``) give each ray its own thread
+and stack.  They keep the same result contract:
 
   - nearest: the min over a cluster's rows of the packed key
         key = (bits(max(t, 0)) & ~127) | row        (INF_KEY on miss)
@@ -16,7 +17,11 @@ the same result contract:
   - nearest_slot: the same against ONE domain per packet (a bucket map);
     the code is domain-local, cid * C + row, and a dead packet (bucket -1)
     returns t 0, code -1.
-  - any-hit: any t in (tmin, tmax) over the packet's domain list.
+  - any-hit: any t in (tmin, tmax) over the packet's domain list.  With
+    the full (P, R) list it is the TPU's fused any-hit
+    (`_anyhit_fused_kernel`: all rounds in one launch, occlusion carried);
+    with one-entry lists it is the TPU's per-round `_anyhit_kernel`, as
+    the scheduler and the per-round routed modes launch it.
 
 Each wrapper sends a CPU tensor to the plain version and launches the CUDA
 kernel for a CUDA tensor (or raises); there is no fallback between them.
@@ -30,6 +35,7 @@ import torch
 from ..core import geom
 from ..core.device import resolve_device
 from ..core.types import Hits
+from . import _build
 from .cluster_bvh import build_cluster_bvh
 from .common import pad_rays
 
@@ -201,14 +207,7 @@ def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
         ("tmax", tmax, torch.float32, 1), ("bounds", bounds, torch.float32, 4),
         ("meta", meta, torch.int32, 3), ("w", w, torch.float32, 4),
     ]
-    for name, x, dtype, ndim in want:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
-        if x.dtype != dtype or x.dim() != ndim:
-            raise ValueError(f"{name}: want {ndim}-d {dtype}, got "
-                             f"{x.dim()}-d {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_tensors(dev, want)
     n = o.shape[0]
     n_dom, nn = bounds.shape[0], bounds.shape[1]
     if (o.shape[1] != 3 or d.shape != o.shape or tmin.shape != (n,)
@@ -228,10 +227,7 @@ def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
 
 def _launch(fn, order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
             outs, counters):
-    from . import _build  # noqa: PLC0415
-
-    lib = _build.load("traverse")
-    stack = lib.spray_stack_size()
+    stack = _build.load("traverse").spray_stack_size()
     if 7 * depth + 1 > stack:
         raise ValueError(f"BVH depth {depth} needs a stack of {7 * depth + 1}"
                          f" entries; the kernel has {stack}")
@@ -243,17 +239,13 @@ def _launch(fn, order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
     nn, nc, c = bounds.shape[1], w.shape[1], w.shape[3] // 3
     # a domain list passes its rounds, a bucket map the number of pages
     width = order.shape[1] if order.dim() == 2 else bounds.shape[0]
-    stream = torch.cuda.current_stream(o.device).cuda_stream
-    with torch.cuda.device(o.device):
-        err = getattr(lib, fn)(
-            order.data_ptr(), width, packet, o.data_ptr(),
-            d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-            bounds.data_ptr(), meta.data_ptr(), w.data_ptr(), nn, nc, c,
-            *[x.data_ptr() for x in outs],
-            None if counters is None else counters.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError_t {err}")
+    _build.launch(
+        "traverse", fn, o.device, order.data_ptr(), width, packet,
+        o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
+        bounds.data_ptr(), meta.data_ptr(), w.data_ptr(), nn, nc, c,
+        *[x.data_ptr() for x in outs],
+        None if counters is None else counters.data_ptr(),
+    )
 
 
 def nearest(order, o, d, tmin, tmax, bounds, meta, w, packet, depth,

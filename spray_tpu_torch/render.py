@@ -1,7 +1,9 @@
 """Public API: render / make_pipeline (counterpart of ``spray_tpu/render.py``).
 
-The default intersector is the multi-domain cluster intersector, whose
-traversal runs in the hand-written CUDA kernels on the card.
+`default_intersector` is the reference's selector: brute force for tiny
+scenes, else the multi-domain cluster intersector, with the binned, sweep
+and brute-kernel intersectors on request.  Their traversal runs in the
+hand-written CUDA kernels on the card.
 """
 
 from __future__ import annotations
@@ -17,10 +19,35 @@ from .diff import grads_of, make_diff_render_fn
 from .integrators.device import make_render_fn
 from .integrators.wavefront import make_scene_arrays
 from .kernels.multidomain import MultiDomainClusterIntersector
+from .oracle.brute import BruteIntersector
+
+PREFER = ("auto", "brute", "binned", "sweep", "pallas", "multidomain")
 
 
-def default_intersector(scene, device=None):
-    """The multi-domain cluster intersector over the CUDA kernels."""
+def default_intersector(scene, prefer="auto", device=None):
+    """Intersector for the scene, with the reference's `prefer` values.
+
+    "brute", and "auto" at <= 256 triangles: the torch `BruteIntersector`.
+    "binned": `BinnedIntersector` (for coherent primary-ray workloads).
+    "sweep": `SweepIntersector`.
+    "pallas", "multidomain", and "auto" otherwise: the multi-domain cluster
+    intersector over the CUDA traversal kernels.  The reference sends
+    "auto" off the TPU to its stackful `BVHIntersector`; the port has no
+    `bvh/` yet, so "auto" goes to the multi-domain intersector until then.
+    """
+    if prefer not in PREFER:
+        raise ValueError(f"prefer: want one of {PREFER}, got {prefer!r}")
+    ntris = int(np.asarray(scene.faces).shape[0])
+    if prefer == "brute" or (prefer == "auto" and ntris <= 256):
+        return BruteIntersector(scene, device=device)
+    if prefer == "binned":
+        from .kernels.binned import BinnedIntersector  # noqa: PLC0415
+
+        return BinnedIntersector(scene, device=device)
+    if prefer == "sweep":
+        from .kernels.sweep import SweepIntersector  # noqa: PLC0415
+
+        return SweepIntersector(scene, device=device)
     return MultiDomainClusterIntersector(scene, device=device)
 
 

@@ -6,9 +6,14 @@ import pytest
 
 from spray_tpu.domains.partition import median_split_assign as j_assign
 from spray_tpu.io import scenes as js
+from spray_tpu.kernels.binned import BinnedScene as JBinnedScene
+from spray_tpu.kernels.brute import PallasBruteIntersector as JPallasBrute
 from spray_tpu.kernels.multidomain import build_cluster_domains as j_build
 from spray_tpu_torch.domains.partition import median_split_assign as t_assign
+from spray_tpu_torch.interop import binned_arrays, brute_arrays
 from spray_tpu_torch.io import scenes as ts
+from spray_tpu_torch.kernels.binned import BinnedScene as TBinnedScene
+from spray_tpu_torch.kernels.brute import brute_table
 from spray_tpu_torch.kernels.multidomain import build_cluster_domains as t_build
 from spray_tpu_torch.kernels.traverse import tree_depth
 
@@ -61,3 +66,56 @@ def test_placeholder_pages_for_empty_domains():
     np.testing.assert_array_equal(pt["aabb"][empty], np.float32(2e30))
     assert (pt["meta"][empty] == -1).all()
     assert (pt["w"][empty] == 0).all()
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_binned_scene_and_brute_table_equal(name):
+    """The port's BinnedScene arrays == the reference's on the same scene:
+    shapes and tri_ids exactly, floats to the 2e-6 allowed the pages; the
+    brute triangle table exactly."""
+    sj, st = SCENES[name](js), SCENES[name](ts)
+    bj = binned_arrays(JBinnedScene(sj.vertices, sj.faces))
+    bt = TBinnedScene(st.vertices, st.faces)
+    assert bt.num_supernodes == bt.sbox.shape[0] == bj["sbox"].shape[0]
+    for k, a in bt.arrays().items():
+        assert a.shape == bj[k].shape and a.dtype == bj[k].dtype, k
+    np.testing.assert_array_equal(bt.tri_ids, bj["tri_ids"])
+    for k in ("tri9", "sbox", "world_lo", "world_hi"):
+        np.testing.assert_allclose(bt.arrays()[k], bj[k], rtol=0, atol=2e-6,
+                                   err_msg=k)
+    # cluster boxes: padded clusters and the null supernode are (+inf, -inf)
+    fin = np.isfinite(bj["cbox"])
+    np.testing.assert_array_equal(np.isfinite(bt.cbox), fin)
+    np.testing.assert_array_equal(bt.cbox[~fin], bj["cbox"][~fin])
+    np.testing.assert_allclose(bt.cbox[fin], bj["cbox"][fin], rtol=0, atol=2e-6)
+    assert np.isinf(bt.cbox[-1]).all() and (bt.tri9[-1] == 0).all()
+    tri9, ids = brute_table(st)
+    jtri9, jids = brute_arrays(JPallasBrute(sj, interpret=True))
+    assert tri9.tobytes() == jtri9.tobytes()
+    np.testing.assert_array_equal(ids, jids)
+
+
+LAUNCHERS = ["spray_nearest", "spray_anyhit", "spray_nearest_slot",
+             "spray_brute_nearest", "spray_brute_anyhit",
+             "spray_binned_nearest", "spray_binned_anyhit"]
+
+
+@pytest.mark.parametrize("fn", LAUNCHERS)
+def test_ctypes_signature_matches_the_c_launcher(fn):
+    """The argtypes bound with ctypes follow the extern "C" launcher's
+    parameter list in the CUDA source: a pointer (and the stream) is a
+    c_void_p, never an int that would cut a 64-bit address; an int is a
+    c_int; the counts agree."""
+    import ctypes
+    import re
+
+    from spray_tpu_torch.kernels import _build
+
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    found = re.findall(r"\nint %s\(([^)]*)\)\s*{" % fn, text)
+    assert len(found) == 1, fn
+    params = [p.strip() for p in found[0].split(",")]
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.startswith("int ") for p in params), params
+    assert _build._SIGNATURES[fn] == want
+    assert params[-1] == "void* stream"

@@ -39,6 +39,8 @@ def test_port_imports_no_jax():
     assert "spray_tpu_torch.render" in res["mods"]
     assert "spray_tpu_torch.sched.epochs" in res["mods"]
     assert "spray_tpu_torch.diff" in res["mods"]
+    for m in ("brute", "binned", "sweep"):
+        assert f"spray_tpu_torch.kernels.{m}" in res["mods"]
     assert res["bad"] == []
 
 
@@ -57,9 +59,12 @@ def test_entry_points_require_gpu(monkeypatch):
     """device=None means CUDA: with no card they raise, never run on CPU."""
     from spray_tpu_torch.diff import make_diff_render_fn, render_grad
     from spray_tpu_torch.integrators.device import render_device
+    from spray_tpu_torch.kernels.binned import BinnedIntersector
+    from spray_tpu_torch.kernels.brute import PallasBruteIntersector
+    from spray_tpu_torch.kernels.sweep import SweepIntersector
     from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
     from spray_tpu_torch.kernels.traverse import ClusterBVHIntersector
-    from spray_tpu_torch.render import make_pipeline, render
+    from spray_tpu_torch.render import default_intersector, make_pipeline, render
     from spray_tpu_torch.residency.manager import ResidencyManager
     from spray_tpu_torch.sched.epochs import OOCIntersector
 
@@ -74,6 +79,11 @@ def test_entry_points_require_gpu(monkeypatch):
                  lambda: make_pipeline(scene, cam, cfg, backward=True),
                  lambda: MultiDomainClusterIntersector(scene),
                  lambda: ClusterBVHIntersector(scene),
+                 lambda: BinnedIntersector(scene),
+                 lambda: SweepIntersector(scene),
+                 lambda: PallasBruteIntersector(scene),
+                 lambda: default_intersector(scene, prefer="sweep"),
+                 lambda: default_intersector(scene, prefer="brute"),
                  lambda: OOCIntersector(scene, n_domains=2, num_slots=1),
                  lambda: ResidencyManager(2, lambda d: {}),
                  lambda: make_diff_render_fn(scene, cam, cfg),

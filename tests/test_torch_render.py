@@ -12,11 +12,13 @@ from spray_tpu.integrators.device import render_device as j_render_device
 from spray_tpu.io import scenes as js
 from spray_tpu.kernels import multidomain as jmd
 from spray_tpu.oracle import render_oracle
+from spray_tpu.render import default_intersector as j_default_intersector
 from spray_tpu.render import make_pipeline as j_make_pipeline
 from spray_tpu_torch.core.config import RenderConfig
 from spray_tpu_torch.interop import camera_from_arrays, scene_from_arrays
 from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
-from spray_tpu_torch.render import make_pipeline, render
+from spray_tpu_torch.kernels.brute import PallasBruteIntersector
+from spray_tpu_torch.render import default_intersector, make_pipeline, render
 
 CAM = dict(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0.0), up=(0, 1, 0),
            fov_y_deg=40, width=16, height=16)
@@ -84,3 +86,52 @@ def test_spp_batched_accumulation_deterministic():
     b = render(scene, cam, cfg, intersector=isect, device="cpu")
     assert a.tobytes() == b.tobytes()
     assert np.isfinite(a).all() and a.mean() > 0
+
+
+@pytest.mark.parametrize("prefer", ["auto", "brute", "binned", "sweep",
+                                    "pallas", "multidomain"])
+def test_default_intersector_picks_the_reference_class(prefer):
+    """Same class name as the reference's selector for every `prefer`, on a
+    scene above the 256-triangle brute threshold and (auto) below it.
+    "auto" above it is the exception: off the TPU the reference falls back
+    to its stackful BVHIntersector, which the port does not have yet."""
+    jscene, _, scene, _, _ = _setup()
+    assert scene.num_faces > 256
+    got = default_intersector(scene, prefer=prefer, device="cpu")
+    want = type(j_default_intersector(jscene, prefer=prefer)).__name__
+    if prefer == "auto":
+        assert want == "BVHIntersector"
+        want = "MultiDomainClusterIntersector"
+    assert type(got).__name__ == want
+    if prefer == "auto":
+        small = default_intersector(js.cornell_box(), device="cpu")
+        assert type(small).__name__ == type(
+            j_default_intersector(js.cornell_box())).__name__ == "BruteIntersector"
+    with pytest.raises(ValueError, match="prefer"):
+        default_intersector(scene, prefer="embree", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cornell32():
+    """A 32x32 Cornell PT+NEE frame through the multi-domain intersector."""
+    from spray_tpu_torch.core.camera import make_camera
+    from spray_tpu_torch.io.scenes import cornell_box
+
+    scene = cornell_box()
+    cam = make_camera(**{**CAM, "width": 32, "height": 32})
+    cfg = RenderConfig(spp=1, bounces=2, integrator="pt", seed=5)
+    base = render(scene, cam, cfg, device="cpu",
+                  intersector=MultiDomainClusterIntersector(scene, device="cpu"))
+    return scene, cam, cfg, base
+
+
+@pytest.mark.parametrize("which", ["binned", "sweep", "brute_kernels"])
+def test_alternate_intersectors_render_the_same_frame(cornell32, which):
+    scene, cam, cfg, base = cornell32
+    if which == "brute_kernels":
+        isect = PallasBruteIntersector(scene, device="cpu")
+    else:
+        isect = default_intersector(scene, prefer=which, device="cpu")
+    img = render(scene, cam, cfg, intersector=isect, device="cpu")
+    np.testing.assert_allclose(img, base, atol=2e-3, rtol=1e-3)
+    assert base.mean() > 0.05
