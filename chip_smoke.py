@@ -6,7 +6,9 @@
 Phases (each prints its lines; any failed check makes the run exit 1):
   1. the card's name and power limit; nvcc builds every kernel source of
      spray_tpu_torch/kernels/csrc into build/kernels/, one nvcc per source,
-     all started together;
+     all started together; each kernel's registers, shared memory, stack and
+     spills from nvcc's report, and the resident blocks per SM of the three
+     traversal kernels (the two warp-per-ray kernels must not spill);
   2. kernel parity: each CUDA kernel against its plain PyTorch version and
      the torch brute oracle, on a 40,962-tri wisp scene (6 domains, 41
      supernodes), 16,384 random rays plus the bounce-1 and shadow wavefronts
@@ -16,7 +18,12 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      PallasBruteIntersector, the visit kernels on the visit lists of real
      BinnedIntersector and SweepIntersector calls (kept by a recording
      proxy); the brute and visit kernels equal their plain versions bit
-     for bit;
+     for bit; the two traversal designs against each other on one-entry
+     domain lists cut from those calls (the warp-per-ray nearest_kernel ==
+     the thread-per-ray nearest_slot_kernel: t bit-equal, code equal after
+     the domain offset with no tie tolerance, the three counts equal), and
+     every traversal kernel == the host's BVH-following walk_reference on
+     WALK_PACKETS packets, full lists and one-entry lists, counts included;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
      through the plain versions (the PlainIntersector proxy), on the card,
      and so are the loss and gradients of a 64x64 training step; the frame
@@ -28,7 +35,9 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      21 domains), 512x512, spp 4, bounces 2, PT+NEE, seed 0: frame time,
      rays traced, Grays/s, peak memory, launch counts, per-kernel time
      against its bound, and each kernel against its plain version on a
-     sample of SAMPLE_PACKETS live packets of every main-path call;
+     sample of SAMPLE_PACKETS live packets of every main-path call; on that
+     sample the two traversal designs against each other and against
+     walk_reference as in phase 2;
   5. the speculative epoch scheduler at full size: the same scene and
      camera at spp 1, host-driven render_device through OOCIntersector in
      the reference's two scheduler configurations (8 domains in 8 slots:
@@ -73,6 +82,8 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 TEST_OPS = 40  # arithmetic of one ray-triangle test (see traverse.cu)
 NODE_OPS = 8 * 22  # slab tests of one 8-wide node visit
 SAMPLE_PACKETS = 256  # live packets of each main-path call held against plain
+WALK_PACKETS = 1  # packets of a call that the host's walk_reference follows
+WARP_PER_RAY = ("nearest_kernel", "anyhit_kernel")  # one warp walks one ray
 MT_OPS = 46  # arithmetic of one Möller–Trumbore test (csrc/mt.cuh)
 ALT_TIMED = 2  # timed frames of each alternate-intersector path, after a warm-up
 VISIT_SAMPLE_LAUNCHES = 3  # visit launches of each trace call held against plain
@@ -221,17 +232,110 @@ def sample_packets(torch, args, k, dead=0):
     packets (all of them if there are fewer) and its first `dead` dead
     packets, against the full pages.  args[0] is a domain list or a bucket
     map."""
-    order, packet = args[0], args[8]
-    live = (args[4].view(-1, packet) > 0).any(dim=1)
+    live = (args[4].view(-1, args[8]) > 0).any(dim=1)
     live_pk = torch.nonzero(live).view(-1)
     if live_pk.numel() > k:
         live_pk = live_pk[torch.linspace(0, live_pk.numel() - 1, k,
                                          device=live_pk.device).long()]
-    pk = torch.cat([live_pk, torch.nonzero(~live).view(-1)[:dead]])
+    return pick_packets(torch, args,
+                        torch.cat([live_pk, torch.nonzero(~live).view(-1)[:dead]]))
+
+
+def pick_packets(torch, args, pk):
+    """The call's packed inputs cut to the packets `pk` (indices), against
+    the full pages."""
+    packet = args[8]
     ray_idx = (pk[:, None] * packet
                + torch.arange(packet, device=pk.device)).view(-1)
-    return (order[pk].contiguous(),
+    return (args[0][pk].contiguous(),
             *[a[ray_idx].contiguous() for a in args[1:5]], *args[5:])
+
+
+def middle(torch, n, dev):
+    """Indices of the WALK_PACKETS middle ones of n packets."""
+    k = min(WALK_PACKETS, n)
+    return torch.arange(k, device=dev) + (n - k) // 2
+
+
+def same_bits(torch, ref, got):
+    """Tuples of CPU / card tensors equal bit for bit."""
+    return all(bool((r.cpu().view(torch.int32) == g.cpu().view(torch.int32)).all())
+               for r, g in zip(ref, got))
+
+
+def check_walk(torch, traverse, tag, kind, sub, cpu_pages, per_dom=None):
+    """The warp-per-ray kernel of `kind` on the packed inputs `sub` (a few
+    hundred rays) == the host's walk_reference: t, code and occlusion bit
+    for bit with no tie tolerance, and the three counts.  With per_dom (the
+    codes of one domain; `sub` then holds one-entry lists) the
+    thread-per-ray slot kernel is held against the same walk."""
+    dev = sub[1].device
+    *ref, cnt = traverse.walk_reference(sub[0], *sub[1:5], *cpu_pages, sub[8],
+                                        occl=kind == "anyhit")
+    want = [cnt["nodes"], cnt["leaves"], cnt["tests"]]
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    got = run_kernel(traverse, kind, sub, counters)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    check(f"{tag} {kind}_kernel == walk_reference on {sub[1].shape[0]} rays "
+          "(bit-equal, no tie tolerance; node, leaf and test counts equal)",
+          same_bits(torch, ref, got) and counters.tolist() == want,
+          f"(counts {counters.tolist()} vs {want}, stack high-water "
+          f"{cnt['stack_high']})")
+    if per_dom is None:
+        return
+    bucket = sub[0][:, 0].contiguous()
+    dom = bucket.repeat_interleave(sub[8]).cpu()
+    local = torch.where(ref[1] >= 0, ref[1] - dom * per_dom, -1)
+    counters.zero_()
+    got = traverse.nearest_slot(bucket, *sub[1:], counters=counters)
+    torch.cuda.synchronize()
+    check(f"{tag} nearest_slot_kernel == walk_reference on {sub[1].shape[0]} "
+          "rays (bit-equal, no tie tolerance; counts equal)",
+          same_bits(torch, (ref[0], local), got) and counters.tolist() == want,
+          f"(counts {counters.tolist()} vs {want})")
+
+
+def check_designs(torch, traverse, tag, kind, args, per_dom, cpu_pages,
+                  rounds=(0, 1)):
+    """One-entry domain lists cut from a call's packed inputs (column r of
+    its lists, the packets that have a domain and a live lane there): the
+    warp-per-ray nearest_kernel against the thread-per-ray
+    nearest_slot_kernel (t bit-equal, code equal after the domain offset, no
+    tie tolerance, the three counts equal), and the kernels of `kind`
+    against walk_reference on WALK_PACKETS of those packets."""
+    order, packet = args[0], args[8]
+    live = (args[4].view(-1, packet) > 0).any(dim=1)
+    dev = order.device
+    for r in rounds:
+        if r >= order.shape[1]:
+            break
+        pk = torch.nonzero(live & (order[:, r] >= 0)).view(-1)
+        if not pk.numel():
+            continue
+        sub = pick_packets(torch, args, pk)
+        one = (sub[0][:, r:r + 1].contiguous(), *sub[1:])
+        check_walk(torch, traverse, f"{tag} round {r} one-entry lists", kind,
+                   pick_packets(torch, one, middle(torch, pk.numel(), dev)),
+                   cpu_pages, per_dom if kind == "nearest" else None)
+        if kind != "nearest":
+            continue
+        cw = torch.zeros(3, dtype=torch.int64, device=dev)
+        ct = torch.zeros(3, dtype=torch.int64, device=dev)
+        t_w, code_w = traverse.nearest(*one, counters=cw)
+        torch.cuda.synchronize()
+        bucket = one[0][:, 0].contiguous()
+        t_t, code_t = traverse.nearest_slot(bucket, *one[1:], counters=ct)
+        torch.cuda.synchronize()
+        dom = bucket.repeat_interleave(packet)
+        local = torch.where(code_w >= 0, code_w - dom * per_dom, -1)
+        check(f"{tag} round {r} warp-per-ray nearest_kernel == thread-per-ray "
+              f"nearest_slot_kernel on {pk.numel()} one-entry packets (t "
+              "bit-equal, codes equal with no tie tolerance, counts equal)",
+              same_bits(torch, (t_t, code_t), (t_w, local))
+              and cw.tolist() == ct.tolist(),
+              f"({int((code_t != local).sum())} codes differ; counts "
+              f"{cw.tolist()} vs {ct.tolist()})")
 
 
 def bound_parts(torch, kind, args, counts):
@@ -1203,11 +1307,30 @@ def main():
         return src, log, time.perf_counter() - t0
 
     sources = sorted(_build.CSRC.glob("*.cu"))
+    built = {}
     with ThreadPoolExecutor(len(sources)) as pool:
         for src, log, secs in pool.map(build_one, sources):
-            regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+            report = _build.ptxas_report(log)
+            built.update(report)
             print(f"build {src.name} into {_build.BUILD_DIR.relative_to(ROOT)}: "
-                  f"{secs:.2f} s; " + " | ".join(regs), flush=True)
+                  f"{secs:.2f} s; " + " | ".join(
+                      f"{k}: {v['registers']} registers, {v['smem']} bytes of "
+                      f"shared memory, {v['stack']} bytes of stack, spill stores "
+                      f"{v['spill_stores']} loads {v['spill_loads']} bytes"
+                      for k, v in report.items()), flush=True)
+    blocks_per_sm = {
+        k: _build.load("traverse").spray_blocks_per_sm(i)
+        for i, k in enumerate(("nearest_kernel", "anyhit_kernel",
+                               "nearest_slot_kernel"))}
+    print("occupancy (resident blocks of 256 threads per SM, of the 8 that "
+          f"fill its 64 warps): {blocks_per_sm}", flush=True)
+    for k in WARP_PER_RAY:
+        v = built.get(k, {})
+        check(f"phase1 {k}: no register spill, shared memory under 48 KB, "
+              "resident on the card",
+              v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+              and 0 < v.get("smem", 0) < 48 * 1024 and blocks_per_sm[k] > 0,
+              f"({v}, {blocks_per_sm[k]} blocks per SM)")
     reset_launches()
     phase_done("phase1 (build)")
 
@@ -1233,9 +1356,11 @@ def main():
              ("random", "anyhit", (o, d, tmin, far)),
              ("bounce1", "nearest", bounce1[1:]),
              ("shadow0", "anyhit", shadow[1:])]
+    small_pages = tuple(x.cpu() for x in (sisect.bounds, sisect.meta, sisect.w))
     for tag, kind, (wo, wd, wmin, wmax) in waves:
         args, _ = sisect._args(wo, wd, wmin, wmax)
         got = run_kernel(traverse, kind, args)
+        torch.cuda.synchronize()  # a fault of the kernel shows here
         ref = run_plain(traverse, kind, args)
         torch.cuda.synchronize()
         compare_raw(f"phase2 {tag} {kind} kernel~plain", kind, ref, got)
@@ -1249,6 +1374,13 @@ def main():
             check(f"phase2 {tag} anyhit kernel~brute occlusion equal",
                   bool((ob == ok).all()), f"({int((ob != ok).sum())} differ)")
         torch.cuda.synchronize()
+        # the warp-per-ray design against the host's walk and against the
+        # thread-per-ray design, a synchronise after each launch
+        n_pk = args[0].shape[0]
+        check_walk(torch, traverse, f"phase2 {tag} full lists", kind,
+                   pick_packets(torch, args, middle(torch, n_pk, dev)), small_pages)
+        check_designs(torch, traverse, f"phase2 {tag}", kind, args,
+                      sisect.per_dom, small_pages)
     tdead = tmax.clone()
     tdead[1024:4096] = 0.0  # packets 4-15 dead
     phase2_slot(torch, traverse, small, brute,
@@ -1328,6 +1460,7 @@ def main():
     fn(make_scene_arrays(scene, dev))
     torch.cuda.synchronize()
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    bench_pages = tuple(x.cpu() for x in (isect.bounds, isect.meta, isect.w))
     keys = ("ms", "bound_ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms",
             "s_ops_ms", "s_bytes_ms", "s_err")
     stats = {k: {**dict.fromkeys(keys, 0.0), "calls": 0, "s_rays": 0,
@@ -1351,6 +1484,10 @@ def main():
         n_pk = sub[0].shape[0]
         err = compare_raw(f"phase4 call {i} {kind} kernel~plain on {n_pk} "
                           "main-path packets", kind, ref, got)
+        check_walk(torch, traverse, f"phase4 call {i} full lists", kind,
+                   pick_packets(torch, sub, middle(torch, n_pk, dev)), bench_pages)
+        check_designs(torch, traverse, f"phase4 call {i}", kind, sub,
+                      isect.per_dom, bench_pages)
         s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
         s_parts = bound_parts(torch, kind, sub, s_cnt)
         print(f"phase4 call {i} {kind}: {live} live rays, {int(cnt[0])} node "
@@ -1368,7 +1505,7 @@ def main():
         s["calls"] += 1
         s["counts"] += cnt
     shadows = [c for c in rec.calls if c[0] == "anyhit"]
-    del rec
+    del rec, bench_pages
 
     phase_done("phase4 (forward frame)")
 
@@ -1410,8 +1547,8 @@ def main():
         s = stats[kind]
         fby = "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes"
         bms, by = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
-        print(f"phase4 {name}: per frame {s['ms']:.3f} ms in {s['calls']} launches"
-              f" ({launches[name] / 3:.0f} per timed frame), "
+        print(f"phase4 {name} (warp per ray): per frame {s['ms']:.3f} ms in "
+              f"{s['calls']} launches ({launches[name] / 3:.0f} per timed frame), "
               f"{int(s['counts'][2])} tri tests, bound {s['bound_ms']:.4f} ms "
               f"({fby}); samples ({s['s_rays']} rays over {s['calls']} calls) "
               f"{s['s_ms']:.3f} ms vs plain {s['s_plain_ms']:.3f} ms, bound "
@@ -1429,6 +1566,7 @@ def main():
             "sample": f"{SAMPLE_PACKETS} live packets of each main-path call "
                       f"({s['s_rays']} rays), full pages",
             "launches_by_path": by_path[name],
+            "design": "warp_per_ray", "blocks_per_sm": blocks_per_sm[name],
         }
         if kind == "anyhit":
             # The full (P, R) lists of the forward path stand for the TPU's

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,6 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "spray_stack_size": [],
+    # which: 0 nearest_kernel, 1 anyhit_kernel, 2 nearest_slot_kernel
+    "spray_blocks_per_sm": [_I],
     # order, n_rounds, packet, o, d, tmin, tmax, n, bounds, meta, w,
     # nn, nc, c, out_t, out_code, counters, stream
     "spray_nearest": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -73,23 +76,53 @@ def _nvcc():
 
 def build(name):
     """Compile csrc/<name>.cu with nvcc unless the library is already built.
-    Returns (library path, nvcc's stderr: its ptxas report, "" if cached);
-    raises with nvcc's output on error."""
+    Returns (library path, nvcc's stderr: its ptxas report, kept in a .log
+    file beside the library); raises with nvcc's output on error."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):  # any source may include them
         digest.update(header.read_bytes())
     lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
-        return lib, ""
+        return lib, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    log.write_text(proc.stderr)
     os.replace(tmp, lib)
     return lib, proc.stderr
+
+
+def ptxas_report(log):
+    """{kernel: registers, shared memory (smem), stack and spill bytes} from
+    the report `nvcc -Xptxas -v` writes for each entry function."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            names = re.findall(r"[a-z_]+_kernel", m.group(1))
+            name = names[-1] if names else m.group(1)
+            out[name] = {"registers": None, "smem": 0, "stack": 0,
+                         "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:  # the entry's own line, then one per function it calls
+            for key, val in zip(("stack", "spill_stores", "spill_loads"),
+                                m.groups()):
+                out[name][key] += int(val)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def load(name):

@@ -5,9 +5,16 @@ brute and the binned-visit ones, live in `brute.py` and `binned.py`.)
 
 Counterpart of ``spray_tpu/kernels/traverse.py``.  The TPU kernels
 (`_nearest_fused_kernel`, `_anyhit_fused_kernel`, `_anyhit_kernel`,
-`_nearest_kernel`) walk a packet of rays on lanes through a shared stack;
-the port's CUDA kernels (``csrc/traverse.cu``) give each ray its own thread
-and stack.  They keep the same result contract:
+`_nearest_kernel`) walk a packet of rays on lanes through a shared stack.
+The port's CUDA kernels (``csrc/traverse.cu``) walk ray by ray, every ray in
+the same front-to-back order: `nearest_kernel` and `anyhit_kernel` (bound by
+the FP32 operations of the ray-triangle tests on the H100) give each live ray
+one WARP, whose lanes spread over a node's 8 children and a leaf's C
+triangles, with the stack in shared memory and a block-level queue of live
+rays, so no lane waits on another ray's path; `nearest_slot_kernel` gives
+each ray one thread and a private stack.  `walk_reference` follows the BVH
+the same way on the host and is what both designs are held against, counts
+included.  All keep the same result contract:
 
   - nearest: the min over a cluster's rows of the packed key
         key = (bits(max(t, 0)) & ~127) | row        (INF_KEY on miss)
@@ -185,6 +192,103 @@ def nearest_slot_reference(bucket, o, d, tmin, tmax, bounds, meta, w, packet):
     code = torch.where(code >= 0, code - dom * per_dom, code)
     return (torch.where(dead, torch.zeros_like(t), t),
             torch.where(dead, torch.full_like(code, -1), code))
+
+
+def child_ranks(te, hit):
+    """Rank of each of a node's 8 children among its HIT children by
+    (entry distance, slot index), -1 for a missed child: the count the
+    warp-per-ray kernels take with 8 shuffles.  It is the order of the
+    per-thread kernel's stable insertion sort; the child of rank q is pushed
+    at stack offset k - 1 - q of k hit children, the nearest on top."""
+    slot = np.arange(te.shape[0])
+    before = (te[None, :] < te[:, None]) | (
+        (te[None, :] == te[:, None]) & (slot[None, :] < slot[:, None]))
+    return np.where(hit, (before & hit[None, :]).sum(axis=1), -1)
+
+
+def walk_reference(order, o, d, tmin, tmax, bounds, meta, w, packet,
+                   occl=False, stack=128):
+    """BVH-following plain version of `nearest_kernel` (occl False) and
+    `anyhit_kernel` (occl True): a host loop per ray that walks each listed
+    domain's tree exactly as the CUDA kernels do -- an ordered stack of
+    (child, entry t) culled at pop time, a node's hit children pushed by
+    `child_ranks`, a leaf's C rows tested with `_dense_keys`' arithmetic and
+    reduced to their min key (the kernels' min over lanes and strides) -- so
+    it gives
+    their t, code (ties included), occlusion AND counts.  For tests and the
+    chip smoke run only; takes tensors on any device, returns CPU tensors:
+    (t, code, counts), or (occ, counts) when occl, with counts a dict of
+    node visits, leaf visits, ray-triangle tests and the stack's high-water
+    mark over all rays."""
+    order, o, d, tmin, tmax, bounds, meta, w = (
+        x.detach().cpu() for x in (order, o, d, tmin, tmax, bounds, meta, w))
+    order_n, o_n, d_n, tmin_n, tmax_n, bounds_n, meta_n = (
+        x.numpy() for x in (order, o, d, tmin, tmax, bounds, meta))
+    nc, c = w.shape[1], w.shape[3] // 3
+    f32, inf = np.float32, np.float32(np.inf)
+    t_out = tmax_n.copy()
+    code_out = np.full(t_out.shape, -1, np.int32)
+    occ_out = np.zeros(t_out.shape, np.int32)
+    counts = {"nodes": 0, "leaves": 0, "tests": 0, "stack_high": 0}
+    stk_m = np.zeros(stack, np.int32)
+    stk_t = np.zeros(stack, np.float32)
+    with np.errstate(all="ignore"):
+        for i in np.nonzero(tmax_n > 0)[0]:  # a dead lane keeps tmax, -1, 0
+            oi, di, lo = o_n[i], d_n[i], tmin_n[i]
+            inv = f32(1) / np.where(np.abs(di) > f32(1e-12), di, f32(1e-12))
+            ray = (o[i:i + 1], d[i:i + 1], tmin[i:i + 1])
+            best_t, best_code, occluded = tmax_n[i], -1, False
+            for dom in order_n[i // packet].tolist():
+                if dom < 0 or occluded:
+                    break
+                stk_m[0], stk_t[0], sp = 0, lo, 1
+                while sp > 0:
+                    sp -= 1
+                    m = int(stk_m[sp])
+                    if stk_t[sp] > best_t:
+                        continue  # culled by a nearer hit since
+                    if m >= 0:
+                        counts["nodes"] += 1
+                        b = bounds_n[dom, m]
+                        t0 = (b[:, 0:3] - oi) * inv
+                        t1 = (b[:, 3:6] - oi) * inv
+                        near, far = np.fmin(t0, t1), np.fmax(t0, t1)
+                        tn = np.fmax(np.fmax(near[:, 0], near[:, 1]),
+                                     np.fmax(near[:, 2], lo))
+                        tf = np.fmin(np.fmin(far[:, 0], far[:, 1]),
+                                     np.fmin(far[:, 2], best_t))
+                        te = np.where(tn <= tf, tn, inf)
+                        hit = (meta_n[dom, m] != -1) & (te < inf)
+                        k = int(hit.sum())
+                        if sp + k > stack:
+                            raise ValueError(f"stack of {stack} overflows")
+                        pos = sp + k - 1 - child_ranks(te, hit)[hit]
+                        stk_m[pos] = meta_n[dom, m][hit]
+                        stk_t[pos] = te[hit]
+                        sp += k
+                        counts["stack_high"] = max(counts["stack_high"], sp)
+                        continue
+                    counts["leaves"] += 1
+                    counts["tests"] += c
+                    cid = -(m + 2)
+                    hi = torch.tensor([best_t], dtype=torch.float32)
+                    res = _dense_keys(*ray, hi, w[dom], cid, cid + 1, occl)
+                    if occl:
+                        occluded = bool(res[0])
+                        if occluded:
+                            break
+                        continue
+                    kmin = int(res[0].min())
+                    if kmin == INF_KEY:
+                        continue
+                    t_up = np.array((kmin & -128) + 128, np.int32).view(f32)
+                    if t_up < best_t:
+                        best_t = t_up[()]
+                        best_code = (dom * nc + cid) * c + (kmin & 127)
+            t_out[i], code_out[i], occ_out[i] = best_t, best_code, occluded
+    if occl:
+        return torch.from_numpy(occ_out), counts
+    return torch.from_numpy(t_out), torch.from_numpy(code_out), counts
 
 
 # -------------------------------------------------------------- wrappers ----
