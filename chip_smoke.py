@@ -8,7 +8,8 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      spray_tpu_torch/kernels/csrc into build/kernels/, one nvcc per source,
      all started together; each kernel's registers, shared memory, stack and
      spills from nvcc's report, and the resident blocks per SM of the three
-     traversal kernels (the two warp-per-ray kernels must not spill);
+     traversal kernels (warp-per-ray walks, none may spill) and of the
+     split visit kernel;
   2. kernel parity: each CUDA kernel against its plain PyTorch version and
      the torch brute oracle, on a 40,962-tri wisp scene (6 domains, 41
      supernodes), 16,384 random rays plus the bounce-1 and shadow wavefronts
@@ -18,12 +19,15 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      PallasBruteIntersector, the visit kernels on the visit lists of real
      BinnedIntersector and SweepIntersector calls (kept by a recording
      proxy); the brute and visit kernels equal their plain versions bit
-     for bit; the two traversal designs against each other on one-entry
-     domain lists cut from those calls (the warp-per-ray nearest_kernel ==
-     the thread-per-ray nearest_slot_kernel: t bit-equal, code equal after
+     for bit; the two nearest entry points, which share one warp walk,
+     against each other on one-entry domain lists cut from those calls
+     (nearest_kernel == nearest_slot_kernel: t bit-equal, code equal after
      the domain offset with no tie tolerance, the three counts equal), and
      every traversal kernel == the host's BVH-following walk_reference on
      WALK_PACKETS packets, full lists and one-entry lists, counts included;
+     a constructed visit launch (a supernode and its copy in one run of
+     more than 4 spans of the split kernel) == the plain version bit for
+     bit;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
      through the plain versions (the PlainIntersector proxy), on the card,
      and so are the loss and gradients of a 64x64 training step; the frame
@@ -36,8 +40,8 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      rays traced, Grays/s, peak memory, launch counts, per-kernel time
      against its bound, and each kernel against its plain version on a
      sample of SAMPLE_PACKETS live packets of every main-path call; on that
-     sample the two traversal designs against each other and against
-     walk_reference as in phase 2;
+     sample the two nearest entry points against each other and every
+     kernel against walk_reference as in phase 2;
   5. the speculative epoch scheduler at full size: the same scene and
      camera at spp 1, host-driven render_device through OOCIntersector in
      the reference's two scheduler configurations (8 domains in 8 slots:
@@ -45,8 +49,9 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      off): frame time and scheduler counters of each; the five images
      byte-identical and close to the forward path's; the slot kernel and
      the any-hit kernel (one-entry domain lists) timed over every call of
-     one frame against their bounds, and held against their plain versions
-     on sampled calls of that frame;
+     one config-4 frame against their bounds, and held against their plain
+     versions on sampled calls of that frame, the slot kernel also against
+     walk_reference (counts included);
   6. the training step at full size: make_pipeline(backward=True) on the
      bench configuration of phase 4: step time, Grays/s fwd+bwd, peak
      memory, loss and gradient norms;
@@ -54,12 +59,17 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      the phase-4 frame through default_intersector(prefer="sweep") and
      prefer="binned" (frame time, Grays/s, peak memory, visits, rounds or
      chunks and host syncs per frame, every visit launch of one frame timed
-     against its bound, sampled runs of sampled launches of every trace
-     call (cut to their first VISIT_SAMPLE_LEN visits) held against the
-     plain versions, the image against phase 4's);
-     the same frame through routed="grid" (byte-identical image) and the
-     fused any-hit against the per-round form on the frame's two shadow
-     wavefronts (equal occlusion, times of both); PallasBruteIntersector
+     against its bound, per trace call the runs per launch, the longest and
+     median run and the blocks launched, sampled runs of sampled launches
+     of every trace call (the longest among them, cut to their first
+     VISIT_SAMPLE_LEN visits) held against the plain versions, the image
+     against phase 4's);
+     the same frame through routed="grid" (byte-identical image; the slot
+     and one-entry any-hit kernels over every call of one frame against
+     their bounds, sampled calls against the plain versions and the slot
+     kernel against walk_reference) and the fused any-hit against the
+     per-round form on the frame's two shadow wavefronts (equal occlusion,
+     times of both); PallasBruteIntersector
      at 512x512, spp 4, bounces 2 on cornell_box() and on phase 2's wisp
      scene (frame time, every brute launch of one frame against its bound,
      sampled ray blocks against the plain versions, the image against the
@@ -83,7 +93,7 @@ TEST_OPS = 40  # arithmetic of one ray-triangle test (see traverse.cu)
 NODE_OPS = 8 * 22  # slab tests of one 8-wide node visit
 SAMPLE_PACKETS = 256  # live packets of each main-path call held against plain
 WALK_PACKETS = 1  # packets of a call that the host's walk_reference follows
-WARP_PER_RAY = ("nearest_kernel", "anyhit_kernel")  # one warp walks one ray
+WARP_PER_RAY = ("nearest_kernel", "anyhit_kernel", "nearest_slot_kernel")
 MT_OPS = 46  # arithmetic of one Möller–Trumbore test (csrc/mt.cuh)
 ALT_TIMED = 2  # timed frames of each alternate-intersector path, after a warm-up
 VISIT_SAMPLE_LAUNCHES = 3  # visit launches of each trace call held against plain
@@ -263,12 +273,18 @@ def same_bits(torch, ref, got):
                for r, g in zip(ref, got))
 
 
-def check_walk(torch, traverse, tag, kind, sub, cpu_pages, per_dom=None):
-    """The warp-per-ray kernel of `kind` on the packed inputs `sub` (a few
-    hundred rays) == the host's walk_reference: t, code and occlusion bit
-    for bit with no tie tolerance, and the three counts.  With per_dom (the
-    codes of one domain; `sub` then holds one-entry lists) the
-    thread-per-ray slot kernel is held against the same walk."""
+def per_dom_of(w):
+    """Codes of one domain of the (D, Nc, 4, 3C) pages w."""
+    return w.shape[1] * (w.shape[3] // 3)
+
+
+def check_walk(torch, traverse, tag, kind, sub, cpu_pages, slot=False):
+    """The kernel of `kind` on the packed inputs `sub` (a few hundred rays)
+    == the host's walk_reference: t, code and occlusion bit for bit with no
+    tie tolerance, and the three counts.  With slot (`sub` then holds
+    one-entry lists) the slot kernel, the same warp walk through its own
+    entry point, is held against the same walk in the slot contract:
+    domain-local codes, a dead packet's lanes t 0 and code -1."""
     dev = sub[1].device
     *ref, cnt = traverse.walk_reference(sub[0], *sub[1:5], *cpu_pages, sub[8],
                                         occl=kind == "anyhit")
@@ -282,28 +298,32 @@ def check_walk(torch, traverse, tag, kind, sub, cpu_pages, per_dom=None):
           same_bits(torch, ref, got) and counters.tolist() == want,
           f"(counts {counters.tolist()} vs {want}, stack high-water "
           f"{cnt['stack_high']})")
-    if per_dom is None:
+    if not slot:
         return
     bucket = sub[0][:, 0].contiguous()
     dom = bucket.repeat_interleave(sub[8]).cpu()
-    local = torch.where(ref[1] >= 0, ref[1] - dom * per_dom, -1)
+    dead = dom < 0
+    local = torch.where(dead | (ref[1] < 0), -1,
+                        ref[1] - dom * per_dom_of(cpu_pages[2])).to(torch.int32)
+    slot_t = torch.where(dead, torch.zeros_like(ref[0]), ref[0])
     counters.zero_()
     got = traverse.nearest_slot(bucket, *sub[1:], counters=counters)
     torch.cuda.synchronize()
     check(f"{tag} nearest_slot_kernel == walk_reference on {sub[1].shape[0]} "
-          "rays (bit-equal, no tie tolerance; counts equal)",
-          same_bits(torch, (ref[0], local), got) and counters.tolist() == want,
+          f"rays, {int(dead.sum())} in dead packets (bit-equal, no tie "
+          "tolerance; counts equal)",
+          same_bits(torch, (slot_t, local), got) and counters.tolist() == want,
           f"(counts {counters.tolist()} vs {want})")
 
 
-def check_designs(torch, traverse, tag, kind, args, per_dom, cpu_pages,
-                  rounds=(0, 1)):
+def check_designs(torch, traverse, tag, kind, args, cpu_pages, rounds=(0, 1)):
     """One-entry domain lists cut from a call's packed inputs (column r of
     its lists, the packets that have a domain and a live lane there): the
-    warp-per-ray nearest_kernel against the thread-per-ray
-    nearest_slot_kernel (t bit-equal, code equal after the domain offset, no
-    tie tolerance, the three counts equal), and the kernels of `kind`
-    against walk_reference on WALK_PACKETS of those packets."""
+    contract between the two nearest entry points, which share one warp
+    walk (nearest_kernel on the lists == nearest_slot_kernel on their bucket
+    map: t bit-equal, code equal after the domain offset, no tie tolerance,
+    the three counts equal), and the kernels of `kind` against
+    walk_reference on WALK_PACKETS of those packets."""
     order, packet = args[0], args[8]
     live = (args[4].view(-1, packet) > 0).any(dim=1)
     dev = order.device
@@ -317,7 +337,7 @@ def check_designs(torch, traverse, tag, kind, args, per_dom, cpu_pages,
         one = (sub[0][:, r:r + 1].contiguous(), *sub[1:])
         check_walk(torch, traverse, f"{tag} round {r} one-entry lists", kind,
                    pick_packets(torch, one, middle(torch, pk.numel(), dev)),
-                   cpu_pages, per_dom if kind == "nearest" else None)
+                   cpu_pages, slot=kind == "nearest")
         if kind != "nearest":
             continue
         cw = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -328,10 +348,10 @@ def check_designs(torch, traverse, tag, kind, args, per_dom, cpu_pages,
         t_t, code_t = traverse.nearest_slot(bucket, *one[1:], counters=ct)
         torch.cuda.synchronize()
         dom = bucket.repeat_interleave(packet)
-        local = torch.where(code_w >= 0, code_w - dom * per_dom, -1)
-        check(f"{tag} round {r} warp-per-ray nearest_kernel == thread-per-ray "
-              f"nearest_slot_kernel on {pk.numel()} one-entry packets (t "
-              "bit-equal, codes equal with no tie tolerance, counts equal)",
+        local = torch.where(code_w >= 0, code_w - dom * per_dom_of(args[7]), -1)
+        check(f"{tag} round {r} nearest_kernel == nearest_slot_kernel on "
+              f"{pk.numel()} one-entry packets (t bit-equal, codes equal with "
+              "no tie tolerance, counts equal)",
               same_bits(torch, (t_t, code_t), (t_w, local))
               and cw.tolist() == ct.tolist(),
               f"({int((code_t != local).sum())} codes differ; counts "
@@ -457,12 +477,14 @@ class SlotRecorder:
             setattr(self.traverse, name, self.inner[kind])
 
 
-def sched_kernel_stats(torch, np, traverse, kind, calls, smi):
-    """One scheduler frame's calls of one kernel (kind "nearest": the slot
-    kernel; "anyhit": the any-hit kernel on one-entry domain lists): every
-    call timed against its bound, and SLOT_SAMPLE_CALLS of them held
-    against the plain version on SLOT_SAMPLE_PACKETS live packets and one
-    dead packet each."""
+def slot_kernel_stats(torch, np, traverse, kind, calls, smi, tag):
+    """One frame's calls of one kernel, recorded by SlotRecorder (kind
+    "nearest": the slot kernel; "anyhit": the any-hit kernel on one-entry
+    domain lists): every call timed against its bound, and
+    SLOT_SAMPLE_CALLS of them held against the plain version on
+    SLOT_SAMPLE_PACKETS live packets and one dead packet each; the slot
+    kernel also against walk_reference on the middle live packet and that
+    dead packet, counts included.  `tag` names the frame."""
     if kind == "nearest":
         fn, plain = traverse.nearest_slot, traverse.nearest_slot_reference
         name = "nearest_slot_kernel"
@@ -490,10 +512,17 @@ def sched_kernel_stats(torch, np, traverse, kind, calls, smi):
         got = fn(*sub, counters=counters)
         s_cnt = counters.cpu().numpy().astype(np.float64)
         ref_out, plain_ms = timed_once(torch, lambda: plain(*sub[:-1]))
-        tag = f"phase5 {name} call {i} ({sub[0].shape[0]} packets)"
-        st["s_err"] = max(st["s_err"], compare_raw(f"{tag} kernel~plain", kind,
+        ctag = f"{tag} {name} call {i} ({sub[0].shape[0]} packets)"
+        st["s_err"] = max(st["s_err"], compare_raw(f"{ctag} kernel~plain", kind,
                                                    ref_out, got))
-        check_dead_lanes(torch, f"{tag} kernel", sub, got)
+        check_dead_lanes(torch, f"{ctag} kernel", sub, got)
+        if kind == "nearest":
+            n_pk = sub[0].shape[0]
+            pk = torch.cat([middle(torch, n_pk - 1, sub[0].device),
+                            torch.tensor([n_pk - 1], device=sub[0].device)])
+            one = (sub[0][:, None].contiguous(), *sub[1:])
+            check_walk(torch, traverse, ctag, kind, pick_packets(torch, one, pk),
+                       tuple(x.cpu() for x in sub[5:8]), slot=True)
         st["s_ms"] += cuda_ms(torch, lambda: fn(*sub))
         st["s_plain_ms"] += plain_ms
         ops_ms, bytes_ms = bound_parts(torch, kind, sub, s_cnt)
@@ -501,11 +530,11 @@ def sched_kernel_stats(torch, np, traverse, kind, calls, smi):
         st["s_bytes_ms"] += bytes_ms
         st["s_calls"] += 1
         st["s_rays"] += sub[1].shape[0]
-    check(f"phase5 {name} held against its plain version on scheduler calls",
-          st["s_calls"] > 0, f"({st['s_calls']} calls)")
+    check(f"{tag} {name} held against its plain version", st["s_calls"] > 0,
+          f"({st['s_calls']} calls)")
     fb, fby = bound_of(st["ops_ms"], st["bytes_ms"])
     sb, sby = bound_of(st["s_ops_ms"], st["s_bytes_ms"])
-    print(f"phase5 {name}: one config4_noprefetch frame {st['ms']:.3f} ms in "
+    print(f"{tag} {name}: one frame {st['ms']:.3f} ms in "
           f"{len(calls)} launches, {int(st['counts'][2])} tri tests, bound "
           f"{fb:.4f} ms ({fby}); samples ({st['s_rays']} rays over "
           f"{st['s_calls']} calls) {st['s_ms']:.3f} ms vs plain "
@@ -682,8 +711,9 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
                                              device=dev))
     with SlotRecorder(traverse) as recorder:
         render_device(scene, cam, cfg1, intersector=oc, device=dev)
-    st = {kind: sched_kernel_stats(torch, np, traverse, kind,
-                                   recorder.calls[kind], smi)
+    st = {kind: slot_kernel_stats(torch, np, traverse, kind,
+                                  recorder.calls[kind], smi,
+                                  "phase5 config4_noprefetch frame")
           for kind in ("nearest", "anyhit")}
     st["nearest"].update(configs=res, profile=prof)
     del recorder
@@ -862,38 +892,58 @@ def visit_bound_parts(torch, kind, args, tests):
     return tests * MT_OPS / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3, clusters
 
 
+def run_spans(np, first, last):
+    """(first visit, last visit) index arrays of the runs of a visit list's
+    host flags."""
+    starts, ends = np.nonzero(first)[0], np.nonzero(last)[0]
+    return starts, ends[np.minimum(np.searchsorted(ends, starts), len(ends) - 1)]
+
+
 def sample_runs(torch, np, vlist, k):
-    """The visit list cut to k runs spread evenly over its runs that gate a
-    cluster (all of them if fewer), each cut to its first VISIT_SAMPLE_LEN
-    visits (a shorter run of the same packet: the `last` flag moves to the
-    cut); rays and state stay whole."""
+    """The visit list cut to k of its runs that gate a cluster (all of them
+    if fewer): the k // 2 longest, the others spread evenly over the rest,
+    each cut to its first VISIT_SAMPLE_LEN visits (a shorter run of the same
+    packet: the `last` flag moves to the cut); rays and state stay whole.
+    Returns (the cut list, the cut runs' lengths), or None."""
     cols = [x.cpu().numpy().copy() for x in vlist]
     cmask, first, last = cols[2], cols[3], cols[4]
-    starts, ends = np.nonzero(first)[0], np.nonzero(last)[0]
-    end_of = ends[np.minimum(np.searchsorted(ends, starts), len(ends) - 1)]
-    live = [(a, min(b, a + VISIT_SAMPLE_LEN - 1))
-            for a, b in zip(starts, end_of) if cmask[a:b + 1].any()]
-    if len(live) > k:
-        live = [live[i] for i in np.linspace(0, len(live) - 1, k).astype(int)]
+    live = [(a, b) for a, b in zip(*run_spans(np, first, last))
+            if cmask[a:b + 1].any()]
     if not live:
         return None
+    if len(live) > k:
+        longest = sorted(range(len(live)), key=lambda j: live[j][0] - live[j][1])
+        keep = set(longest[:k // 2])
+        rest = [j for j in range(len(live)) if j not in keep]
+        keep |= {rest[j] for j in np.linspace(0, len(rest) - 1,
+                                               k - len(keep)).astype(int)}
+        live = [live[j] for j in sorted(keep)]
+    live = [(a, min(b, a + VISIT_SAMPLE_LEN - 1)) for a, b in live]
     last[[b for _, b in live]] = 1
     idx = np.concatenate([np.arange(a, b + 1) for a, b in live])
-    return tuple(torch.as_tensor(np.ascontiguousarray(c[idx]),
-                                 device=vlist[0].device) for c in cols)
+    return (tuple(torch.as_tensor(np.ascontiguousarray(c[idx]),
+                                  device=vlist[0].device) for c in cols),
+            [b - a + 1 for a, b in live])
 
 
 def visit_kernel_stats(torch, np, tag, groups, smi):
     """One frame's visit launches, grouped by trace call: every launch timed
-    against its bound, and VISIT_SAMPLE_LAUNCHES launches of each trace
-    call held against the plain version on VISIT_SAMPLE_RUNS runs each.
+    against its bound, the runs per launch, the longest and median run and
+    the blocks launched of each trace call, and VISIT_SAMPLE_LAUNCHES
+    launches of each trace call held against the plain version on
+    VISIT_SAMPLE_RUNS runs each (some longer than the nearest kernel's span
+    of visits a block, so that the cross-block merge is compared).
     Returns stats by kind."""
+    from spray_tpu_torch.kernels import _build
+
+    span = _build.load("binned").spray_binned_span()
     dev = groups[0][1][0][0].device
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     keys = ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms", "s_ops_ms",
             "s_bytes_ms", "s_err")
     st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "visits": 0,
-              "clusters": 0, "s_launches": 0, "s_runs": 0}
+              "clusters": 0, "s_launches": 0, "s_runs": 0, "s_long_runs": 0,
+              "blocks": 0, "runs": 0, "longest_run": 0}
           for k in ("nearest", "anyhit")}
 
     def tests_of(fn, kind, args):
@@ -906,6 +956,7 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
     for gi, (kind, calls) in enumerate(groups):
         fn, plain = visit_fns(kind)
         s = st[kind]
+        runs_per, lengths, blocks = [], [], 0
         for args in calls:
             tests = tests_of(fn, kind, args)
             _, ms = timed_once(torch, lambda: fn(*args))
@@ -916,13 +967,28 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
             s["launches"] += 1
             s["visits"] += args[0].numel()
             s["clusters"] += clusters
+            a, b = run_spans(np, args[3].cpu().numpy(), args[4].cpu().numpy())
+            runs_per.append(len(a))
+            lengths.extend((b - a + 1).tolist())
+            # the nearest kernel: a block per span of visits; any-hit: per visit
+            nv = args[0].numel()
+            blocks += -(-nv // span) if kind == "nearest" else nv
+        s["blocks"] += blocks
+        s["runs"] += len(lengths)
+        s["longest_run"] = max([s["longest_run"], *lengths])
+        print(f"{tag} call {gi} {kind}: {len(calls)} launches; runs per launch "
+              f"min {min(runs_per)} median {int(np.median(runs_per))} max "
+              f"{max(runs_per)}; run length (visits) longest {max(lengths)} "
+              f"median {int(np.median(lengths))}; blocks launched {blocks}",
+              flush=True)
         pick = np.linspace(0, len(calls) - 1,
                            min(VISIT_SAMPLE_LAUNCHES, len(calls))).astype(int)
         for i in sorted(set(pick.tolist())):
-            sub_list = sample_runs(torch, np, calls[i][:5], VISIT_SAMPLE_RUNS)
-            if sub_list is None:
+            sampled = sample_runs(torch, np, calls[i][:5], VISIT_SAMPLE_RUNS)
+            if sampled is None:
                 continue
-            sub = (*sub_list, *calls[i][5:])
+            sub = (*sampled[0], *calls[i][5:])
+            s["s_long_runs"] += sum(n > span for n in sampled[1])
             got = fn(*sub)
             ref, plain_ms = timed_once(torch, lambda: plain(*sub))
             runs = int((sub[3] != 0).sum())
@@ -939,7 +1005,11 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
     for kind, s in st.items():
         name = f"binned_{kind}_kernel"
         check(f"{tag} {name} held against its plain version", s["s_launches"] > 0,
-              f"({s['s_launches']} launches, {s['s_runs']} runs)")
+              f"({s['s_launches']} launches, {s['s_runs']} runs, "
+              f"{s['s_long_runs']} longer than {span} visits)")
+        if kind == "nearest" and s["longest_run"] > span:
+            check(f"{tag} {name}: sampled runs cross blocks", s["s_long_runs"] > 1,
+                  f"({s['s_long_runs']} sampled runs longer than {span} visits)")
         fb, fby = bound_of(s["ops_ms"], s["bytes_ms"])
         sb, sby = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
         s.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
@@ -1016,6 +1086,54 @@ def phase2_alternates(torch, np, small, oracle, waves, dev):
                 compare_exact(f"phase2 {tag} {cls.__name__} binned_{kind}_kernel "
                               f"launch {i} ({calls[i][0].numel()} visits)",
                               plain(*calls[i]), fn(*calls[i]))
+
+
+def check_split_tie(torch, np, small, dev):
+    """One constructed launch of binned_nearest_kernel == its plain version
+    bit for bit: tri9 gets a copy of supernode 0, and packet 0 visits the
+    original first and the copy last in one run of more than 4 spans of the
+    split kernel (packet 1 the other way round), so every ray whose nearest
+    triangle lies in that supernode hits it at two visit indices in blocks
+    apart and must keep the earlier; a short run with the null supernode
+    and a packet with no run lie beside them."""
+    from spray_tpu_torch.kernels import _build, binned
+
+    span = _build.load("binned").spray_binned_span()
+    b = binned.BinnedScene(np.asarray(small.vertices), np.asarray(small.faces))
+    s, group_c = b.num_supernodes, binned.GROUP * binned.CLUSTER
+    tri9 = np.concatenate([b.tri9[:s], b.tri9[:1], b.tri9[s:]])  # copy at s
+    n = 4 * binned.BP
+    rs = np.random.RandomState(5)
+    lo, hi = b.sbox[0, :3], b.sbox[0, 3:]
+    o = np.tile((lo + hi) / 2 + np.float32([0, 0, 4.0 * float((hi - lo).max()) + 8]),
+                (n, 1)).astype(np.float32)
+    d = lo + rs.uniform(size=(n, 3)) * (hi - lo) - o  # aimed at supernode 0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    middle = [1 + j % (s - 1) for j in range(4 * span + 3)]
+    visits = []
+    for p, run in ((0, [0, *middle, s]), (1, [s, *middle, 0])):
+        visits += [(p, x, 0xFF, int(j == 0), int(j == len(run) - 1))
+                   for j, x in enumerate(run)]
+    visits += [(2, 2, 0x3C, 1, 0), (2, s + 1, 0, 0, 1)]
+    vis = np.array(visits, np.int32)
+    cols = [torch.as_tensor(np.ascontiguousarray(vis[:, i]), device=dev)
+            for i in range(5)]
+    rays = [torch.as_tensor(x, device=dev) for x in (o, d, np.zeros(n, np.float32))]
+    t0 = torch.full((n,), float("inf"), device=dev)
+    c0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    tri9 = torch.as_tensor(tri9, device=dev)
+    got = binned.nearest_visits(*cols, *rays, tri9, t0, c0)
+    torch.cuda.synchronize()
+    ref = binned.nearest_visits_reference(*cols, *rays, tri9, t0, c0)
+    compare_exact(f"phase2 constructed binned_nearest_kernel launch ({len(vis)} "
+                  f"visits, runs of {len(middle) + 2} over blocks of {span})",
+                  ref, got)
+    sn_of = (got[1] // group_c).view(-1, binned.BP).cpu()
+    early = [int((sn_of[p] == x).sum()) for p, x in ((0, 0), (1, s))]
+    late = [int((sn_of[p] == x).sum()) for p, x in ((0, s), (1, 0))]
+    check("phase2 constructed launch: rays tied between a supernode and its "
+          "copy keep the earlier visit", min(early) > 0 and max(late) == 0,
+          f"(earlier copy kept on {early} lanes of packets 0, 1; later on {late})")
 
 
 def phase3_alternates(torch, np, small, cam64, cfg64, sisect, img_k, dev):
@@ -1097,8 +1215,11 @@ def phase7_visit_path(torch, np, prefer, scene, cam, cfg, img_ref, dev, smi):
 def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
                   dev, smi):
     """The forward bench frame through routed="grid" (one launch per round),
-    and the fused any-hit against the per-round form on the default
-    frame's shadow wavefronts.  Returns (numbers, launch counts)."""
+    its slot and one-entry any-hit calls over one frame (`slot_kernel_stats`),
+    and the fused any-hit against the per-round form on the default frame's
+    shadow wavefronts.  Returns (numbers, kernel stats by kind, launch
+    counts)."""
+    from spray_tpu_torch.kernels import traverse
     from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
     from spray_tpu_torch.render import make_pipeline
 
@@ -1120,6 +1241,13 @@ def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
     for k in ("nearest_slot_kernel", "anyhit_kernel"):
         check(f"phase7 routed='grid' {k} launched on the path", launches[k] > 0,
               f"({launches[k]})")
+    with SlotRecorder(traverse) as recorder:
+        pipe.run()
+    kst = {kind: slot_kernel_stats(torch, np, traverse, kind,
+                                   recorder.calls[kind], smi,
+                                   "phase7 routed='grid' frame")
+           for kind in ("nearest", "anyhit")}
+    del recorder
     forms = []
     for i, (_, wo, wd, wmin, wmax) in enumerate(shadows):
         args, _ = isect._args(wo, wd, wmin, wmax)
@@ -1134,7 +1262,7 @@ def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
               f"({grid.n_domains} launches) {ms_g:.3f} ms; card {smi}", flush=True)
     return {"frame_s": frame, "warm_s": warm, "rays_traced": rays,
             "grays_per_sec": rays / frame / 1e9, "anyhit_forms": forms,
-            "profile": prof}, launches
+            "profile": prof}, kst, launches
 
 
 def brute_kernel_stats(torch, np, tag, isect, calls, smi):
@@ -1241,6 +1369,18 @@ def phase7_brute(torch, np, tag, scene, cam, cfg, dev, smi):
              "pixels_outside": n_px, "profile": prof}, kst, launches)
 
 
+def frame_numbers(s, frame_sample):
+    """The per-frame numbers of a stats dict of `slot_kernel_stats`."""
+    return {"ms": s["s_ms"], "plain_ms": s["s_plain_ms"], "max_abs_err": s["s_err"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "frame_ms": s["ms"], "frame_bound_ms": s["frame_bound_ms"],
+            "frame_bound_by": s["frame_bound_by"], "frame_launches": s["calls"],
+            "frame_tri_tests": int(s["counts"][2]),
+            "sample": f"{SLOT_SAMPLE_PACKETS} live packets and one dead packet "
+                      f"of {s['s_calls']} calls of one {frame_sample} frame "
+                      f"({s['s_rays']} rays)"}
+
+
 def kernel_entry(name, source, replaces, launches, s, by_path, sample, extra=None):
     """One entry of the kernels JSON from a stats dict with the sample keys
     (s_ms, s_plain_ms, s_err, bound_ms, bound_by) and the frame keys."""
@@ -1322,8 +1462,15 @@ def main():
         k: _build.load("traverse").spray_blocks_per_sm(i)
         for i, k in enumerate(("nearest_kernel", "anyhit_kernel",
                                "nearest_slot_kernel"))}
+    binned_lib = _build.load("binned")
+    binned_span, binned_bps = (binned_lib.spray_binned_span(),
+                               binned_lib.spray_binned_blocks_per_sm())
     print("occupancy (resident blocks of 256 threads per SM, of the 8 that "
-          f"fill its 64 warps): {blocks_per_sm}", flush=True)
+          f"fill its 64 warps): {blocks_per_sm}; binned_nearest_kernel: "
+          f"{binned_bps} blocks of 128 threads per SM, {binned_span} visits a "
+          "block", flush=True)
+    check("phase1 binned_nearest_kernel resident on the card", binned_bps > 0,
+          f"({binned_bps} blocks per SM)")
     for k in WARP_PER_RAY:
         v = built.get(k, {})
         check(f"phase1 {k}: no register spill, shared memory under 48 KB, "
@@ -1374,13 +1521,12 @@ def main():
             check(f"phase2 {tag} anyhit kernel~brute occlusion equal",
                   bool((ob == ok).all()), f"({int((ob != ok).sum())} differ)")
         torch.cuda.synchronize()
-        # the warp-per-ray design against the host's walk and against the
-        # thread-per-ray design, a synchronise after each launch
+        # the kernels against the host's walk and the two nearest entry
+        # points against each other, a synchronise after each launch
         n_pk = args[0].shape[0]
         check_walk(torch, traverse, f"phase2 {tag} full lists", kind,
                    pick_packets(torch, args, middle(torch, n_pk, dev)), small_pages)
-        check_designs(torch, traverse, f"phase2 {tag}", kind, args,
-                      sisect.per_dom, small_pages)
+        check_designs(torch, traverse, f"phase2 {tag}", kind, args, small_pages)
     tdead = tmax.clone()
     tdead[1024:4096] = 0.0  # packets 4-15 dead
     phase2_slot(torch, traverse, small, brute,
@@ -1390,6 +1536,7 @@ def main():
                                ("random_dead", "anyhit", (o, d, tmin,
                                                           tdead.clamp(max=1e30)))],
                       dev)
+    check_split_tie(torch, np, small, dev)
 
     phase_done("phase2 (kernel parity)")
 
@@ -1486,8 +1633,7 @@ def main():
                           "main-path packets", kind, ref, got)
         check_walk(torch, traverse, f"phase4 call {i} full lists", kind,
                    pick_packets(torch, sub, middle(torch, n_pk, dev)), bench_pages)
-        check_designs(torch, traverse, f"phase4 call {i}", kind, sub,
-                      isect.per_dom, bench_pages)
+        check_designs(torch, traverse, f"phase4 call {i}", kind, sub, bench_pages)
         s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
         s_parts = bound_parts(torch, kind, sub, s_cnt)
         print(f"phase4 call {i} {kind}: {live} live rays, {int(cnt[0])} node "
@@ -1523,8 +1669,8 @@ def main():
         visit_frames[prefer], visit[prefer], visit_launches[prefer] = (
             phase7_visit_path(torch, np, prefer, scene, cam, cfg, img, dev, smi))
         phase_done(f"phase7 ({prefer})")
-    routed, routed_launches = phase7_routed(torch, np, scene, pages, cam, cfg,
-                                            isect, img, shadows, dev, smi)
+    routed, grid_k, routed_launches = phase7_routed(
+        torch, np, scene, pages, cam, cfg, isect, img, shadows, dev, smi)
     del pages, shadows
     phase_done("phase7 (routed)")
     brute_k, brute_frames, brute_launches = {}, {}, {}
@@ -1578,36 +1724,24 @@ def main():
                                  "domain lists), spray_tpu/kernels/"
                                  "traverse.py:658 (one-entry lists)")
             entry["anyhit_forms_ms"] = routed["anyhit_forms"]
-            a = sched_any
-            entry["max_abs_err"] = max(s["s_err"], a["s_err"])
-            entry["scheduler"] = {
-                "launches": sched_launches[name], "max_abs_err": a["s_err"],
-                "ms": a["s_ms"], "plain_ms": a["s_plain_ms"],
-                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-                "frame_ms": a["ms"], "frame_bound_ms": a["frame_bound_ms"],
-                "frame_bound_by": a["frame_bound_by"],
-                "frame_launches": a["calls"],
-                "frame_tri_tests": int(a["counts"][2]),
-                "sample": f"{SLOT_SAMPLE_PACKETS} live packets and one dead "
-                          f"packet of {a['s_calls']} calls of one "
-                          f"config4_noprefetch frame ({a['s_rays']} rays)",
-            }
+            entry["max_abs_err"] = max(s["s_err"], sched_any["s_err"],
+                                       grid_k["anyhit"]["s_err"])
+            entry["scheduler"] = {"launches": sched_launches[name],
+                                  **frame_numbers(sched_any, "config4_noprefetch")}
+            entry["routed_grid"] = {"launches": routed_launches[name],
+                                    **frame_numbers(grid_k["anyhit"], "routed='grid'")}
         kernels.append(entry)
     kernels.append({
         "name": "nearest_slot_kernel", "route": "cuda",
         "source": "spray_tpu_torch/kernels/csrc/traverse.cu",
         "replaces": "spray_tpu/kernels/traverse.py:281",
-        "launches": sched_launches["nearest_slot_kernel"],
-        "max_abs_err": slot["s_err"], "ms": slot["s_ms"],
-        "plain_ms": slot["s_plain_ms"], "bound_ms": slot["bound_ms"],
-        "bound_by": slot["bound_by"], "library_ms": None,
-        "frame_ms": slot["ms"], "frame_bound_ms": slot["frame_bound_ms"],
-        "frame_bound_by": slot["frame_bound_by"], "frame_launches": slot["calls"],
-        "frame_tri_tests": int(slot["counts"][2]),
-        "sample": f"{SLOT_SAMPLE_PACKETS} live packets and one dead packet of "
-                  f"{slot['s_calls']} calls of one config4_noprefetch frame "
-                  f"({slot['s_rays']} rays)",
+        "launches": sched_launches["nearest_slot_kernel"], "library_ms": None,
+        **frame_numbers(slot, "config4_noprefetch"),
+        "max_abs_err": max(slot["s_err"], grid_k["nearest"]["s_err"]),
         "launches_by_path": by_path["nearest_slot_kernel"],
+        "design": "warp_per_ray", "blocks_per_sm": blocks_per_sm["nearest_slot_kernel"],
+        "routed_grid": {"launches": routed_launches["nearest_slot_kernel"],
+                        **frame_numbers(grid_k["nearest"], "routed='grid'")},
     })
     binned_src = "spray_tpu_torch/kernels/csrc/binned.cu"
     brute_src = "spray_tpu_torch/kernels/csrc/brute.cu"
@@ -1623,6 +1757,11 @@ def main():
             f"sweep frame ({sw['s_runs']} runs)",
             {"max_abs_err": max(sw["s_err"], bn["s_err"]),
              "frame_visits": sw["visits"], "frame_clusters": sw["clusters"],
+             "frame_runs": sw["runs"], "frame_longest_run": sw["longest_run"],
+             "frame_blocks": sw["blocks"],
+             **({"design": f"split_runs, {binned_span} visits a block",
+                 "blocks_per_sm": binned_bps} if kind == "nearest" else
+                {"design": "block_per_run"}),
              "binned": {"max_abs_err": bn["s_err"], "ms": bn["s_ms"],
                         "plain_ms": bn["s_plain_ms"], "bound_ms": bn["bound_ms"],
                         "bound_by": bn["bound_by"], "frame_ms": bn["ms"],
@@ -1630,7 +1769,9 @@ def main():
                         "frame_bound_by": bn["frame_bound_by"],
                         "frame_launches": bn["launches"],
                         "frame_visits": bn["visits"],
-                        "frame_clusters": bn["clusters"]}}))
+                        "frame_clusters": bn["clusters"], "frame_runs": bn["runs"],
+                        "frame_longest_run": bn["longest_run"],
+                        "frame_blocks": bn["blocks"]}}))
     for kind, line in (("nearest", 57), ("anyhit", 84)):
         name = f"brute_{kind}_kernel"
         w, c = brute_k["wisp41k"][kind], brute_k["cornell"][kind]

@@ -30,6 +30,9 @@ _SIGNATURES = {
     "spray_stack_size": [],
     # which: 0 nearest_kernel, 1 anyhit_kernel, 2 nearest_slot_kernel
     "spray_blocks_per_sm": [_I],
+    # visits one block of binned_nearest_kernel walks; its resident blocks
+    "spray_binned_span": [],
+    "spray_binned_blocks_per_sm": [],
     # order, n_rounds, packet, o, d, tmin, tmax, n, bounds, meta, w,
     # nn, nc, c, out_t, out_code, counters, stream
     "spray_nearest": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
@@ -47,9 +50,10 @@ _SIGNATURES = {
     # ... same up to n, then out_occ, tests, stream
     "spray_brute_anyhit": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     # pkt, sn, cmask, first, last, n_visits, o, d, tmin, n_packets, tri9,
-    # n_super, best_t, best_code (read and updated in place), stream
+    # n_super, best_t, best_code (read and updated in place), keys
+    # (scratch), stream
     "spray_binned_nearest": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I,
-                             _P, _P, _P],
+                             _P, _P, _P, _P],
     # ... same up to tmin, then tmax, n_packets, tri9, n_super, occ (read
     # and updated in place), tests, stream
     "spray_binned_anyhit": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,

@@ -12,7 +12,9 @@ can beat any live ray's best t (the commit invariant).  A visit list is flat:
 (``csrc/binned.cu``) run Möller–Trumbore of a packet's 128 rays against each
 masked cluster, with the formula of `core/geom.moller_trumbore`, and
 accumulate the best (t, code) or the occlusion over a packet's run of
-visits.
+visits: the nearest kernel splits a run over blocks of a few visits each and
+merges their bests per ray (`nearest_visits_split_reference` is its host
+model), the any-hit kernel walks a run in one block.
 
 Where the reference loops on the device (``lax.while_loop``), the port loops
 on the host: each chase round reads one flag from the card.  `stats` counts
@@ -309,6 +311,87 @@ def nearest_visits_reference(pkt, sn, cmask, first, last, o, d, tmin, tri9,
     return bt.view(-1), bc.view(-1)
 
 
+def _order_bits(t):
+    """t (f32 numpy) as uint32 keys that order like t, -0.0 taken as +0.0
+    (`order_bits` in binned.cu)."""
+    u = np.where(t == 0, np.float32(0), t).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | np.uint32(0x80000000))
+
+
+def _span_segments(first, last, span):
+    """The run segments `binned_nearest_kernel` walks, block by block: for
+    each span [a, a + span) of the visit list, the (run's first visit,
+    visits) of every run that the span reaches, a segment ending at the
+    run's `last` flag, at the next `first` or at the span's end.  A visit
+    between a `last` and the next `first` lies in no segment."""
+    flagged = (first != 0) | (last != 0)
+    segments = []
+    for a in range(0, first.shape[0], span):
+        run = -1
+        if not first[a]:
+            before = np.nonzero(flagged[:a])[0]  # open_run
+            if before.size and not last[before[-1]]:
+                run = int(before[-1])
+        seg = []
+        for v in range(a, min(a + span, first.shape[0])):
+            if first[v]:
+                if run >= 0:
+                    segments.append((run, seg))
+                run, seg = v, []
+            if run < 0:
+                continue
+            seg.append(v)
+            if last[v]:
+                segments.append((run, seg))
+                run, seg = -1, []
+        if run >= 0:
+            segments.append((run, seg))
+    return segments
+
+
+def nearest_visits_split_reference(pkt, sn, cmask, first, last, o, d, tmin,
+                                   tri9, best_t, best_code, span):
+    """Host model of `binned_nearest_kernel`'s split of runs over blocks:
+    each span of `span` visits walks its run segments (`_span_segments`)
+    serially from the run's INPUT best_t, each ray's segment best is merged
+    by the 64-bit key (`_order_bits(t)`, visit << 10 | cluster << 7 | row)
+    with a min, and the winner's t is recomputed from its (visit, cluster,
+    row), so a -0.0 hit keeps its sign.  Equals `nearest_visits_reference`
+    at every span.  Takes tensors on any device; returns updated CPU copies
+    of (best_t, best_code)."""
+    pkt, sn, cmask, first, last, o, d, tmin, tri9, best_t, best_code = (
+        x.cpu() for x in (pkt, sn, cmask, first, last, o, d, tmin, tri9,
+                          best_t, best_code))
+    no_key = np.iinfo(np.uint64).max
+    keys = np.full(best_t.shape[0], no_key, np.uint64)
+    lane = torch.arange(BP)
+    for run, seg in _span_segments(first.numpy(), last.numpy(), span):
+        ray_idx = int(pkt[run]) * BP + lane
+        win = best_t[ray_idx]
+        cur, where = win.clone(), torch.zeros(BP, dtype=torch.int64)
+        for v in seg:
+            for k in range(GROUP):
+                if not (int(cmask[v]) >> k) & 1:
+                    continue
+                tm = _cluster_t(tri9, sn[v:v + 1], k, o, d, ray_idx[None])[0]
+                tm = torch.where((tm >= tmin[ray_idx]) & (tm < cur), tm, INF)
+                trow, jsel = tm.min(dim=0)  # first minimum: the lowest row
+                better = trow < cur
+                cur = torch.where(better, trow, cur)
+                where = torch.where(better, (v << 10) | (k << 7) | jsel, where)
+        hit = (cur < win).numpy()
+        key = ((_order_bits(cur.numpy()).astype(np.uint64) << np.uint64(32))
+               | where.numpy().astype(np.uint64))
+        np.minimum.at(keys, ray_idx.numpy()[hit], key[hit])
+    bt, bc = best_t.clone(), best_code.clone()
+    for i in np.nonzero(keys != no_key)[0].tolist():
+        w = int(keys[i]) & 0xFFFFFFFF
+        v, k, row = w >> 10, (w >> 7) & 7, w & 127
+        bt[i] = _cluster_t(tri9, sn[v:v + 1], k, o, d, torch.tensor([[i]]))[0, row, 0]
+        bc[i] = (int(sn[v]) * GROUP + k) * CLUSTER + row
+    return bt, bc
+
+
 def anyhit_visits_reference(pkt, sn, cmask, first, last, o, d, tmin, tmax,
                             tri9, occ, chunk=64):
     """Plain PyTorch version of `binned_anyhit_kernel`."""
@@ -368,12 +451,14 @@ def nearest_visits(pkt, sn, cmask, first, last, o, d, tmin, tri9, best_t,
                                         tmin, tri9, best_t, best_code)
     bt, bc = best_t.clone(), best_code.clone()
     if pkt.shape[0]:
+        # the per-ray merge keys of the blocks that split a run
+        keys = torch.empty(o.shape[0], dtype=torch.int64, device=o.device)
         _build.launch(
             "binned", "spray_binned_nearest", o.device, pkt.data_ptr(),
             sn.data_ptr(), cmask.data_ptr(), first.data_ptr(),
             last.data_ptr(), pkt.shape[0], o.data_ptr(), d.data_ptr(),
             tmin.data_ptr(), o.shape[0] // BP, tri9.data_ptr(),
-            tri9.shape[0], bt.data_ptr(), bc.data_ptr())
+            tri9.shape[0], bt.data_ptr(), bc.data_ptr(), keys.data_ptr())
         launches["binned_nearest_kernel"] += 1
     return bt, bc
 

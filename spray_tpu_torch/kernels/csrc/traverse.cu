@@ -23,13 +23,9 @@
 // order (P, R) i32 lists each packet's domains front to back, -1 ends it.
 // A bucket map (P,) i32 instead names ONE page per packet, -1 = dead packet.
 //
-// Two designs walk the same tree in the same order, ray by ray, and give
-// the same t, code (ties included), occlusion and counts bit for bit:
-//   - one WARP per ray (nearest_kernel, anyhit_kernel): lanes spread over a
-//     node's children and a leaf's triangles, the stack lies in shared
-//     memory, a block-level queue hands live rays to warps;
-//   - one THREAD per ray (nearest_slot_kernel): each thread walks alone with
-//     a private stack.
+// Every kernel here gives each live ray one WARP (walk_domain_warp): lanes
+// spread over a node's children and a leaf's triangles, the stack lies in
+// shared memory, a block-level queue hands live rays to warps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -307,6 +303,65 @@ __device__ __forceinline__ void flush_counts(unsigned long long* counters,
     atomicAdd(counters + 2, cnt.tests);
 }
 
+// The body of nearest_kernel (SLOT = false) and nearest_slot_kernel (SLOT =
+// true).  A block takes 256 consecutive rays, compacts the live ones into a
+// shared-memory queue, and its 8 warps pull rays from it until it is empty:
+// work follows live rays, and a dead lane only stores.  Each ray walks its
+// packet's list front to back: `order` holds n_rounds domains per packet,
+// -1 ending a list.  With SLOT the list is one entry, the bucket map
+// (P,) read as `order` with n_rounds the number of pages, and the contract
+// is the slot's: a dead packet (bucket < 0) stores t 0 and code -1 on every
+// lane, codes are domain-local (cluster * C + row).
+template <bool SLOT>
+__device__ __forceinline__ void nearest_rays(
+    WalkShared& sh, const int* __restrict__ order, int n_rounds, int packet,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+    const Pages& pg, float* __restrict__ out_t, int* __restrict__ out_code,
+    unsigned long long* __restrict__ counters) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int ray0 = blockIdx.x * SPRAY_BLOCK;
+    const int mine = ray0 + threadIdx.x;
+    const int width = SLOT ? 1 : n_rounds;  // list entries of a packet
+    float hi = 0.f;
+    bool dead_packet = false;
+    if (mine < n) {
+        hi = tmax[mine];
+        if (SLOT) {
+            const int dom = order[mine / packet];
+            if (dom >= n_rounds) __trap();  // a bucket names a page the call lacks
+            dead_packet = dom < 0;
+        }
+    }
+    const bool live = hi > 0.f && !dead_packet;  // an empty window is a dead lane
+    if (mine < n && !live) {
+        out_t[mine] = dead_packet ? 0.f : hi;
+        out_code[mine] = -1;
+    }
+    const int total = queue_live_rays(sh, live);
+    Counts cnt = {0, 0, 0};
+    for (int q; (q = next_live_ray(sh, total, lane)) >= 0;) {
+        const int i = ray0 + q;
+        const Ray r = load_ray(o, d, tmin, i);
+        float best_t = tmax[i];
+        int best_code = -1;
+        const int* ord = order + (size_t)(i / packet) * width;
+        for (int k = 0; k < width; ++k) {
+            const int dom = ord[k];
+            if (dom < 0) break;
+            walk_domain_warp<false>(pg, dom, r, best_t, best_code, cnt,
+                                    sh.stk_m[warp], sh.stk_t[warp], lane);
+        }
+        // the walk carries the global code (dom * Nc + cid) * C + row
+        if (SLOT && best_code >= 0) best_code -= ord[0] * pg.nc * pg.c;
+        if (lane == 0) {
+            out_t[i] = best_t;
+            out_code[i] = best_code;
+        }
+    }
+    if (lane == 0) flush_counts(counters, cnt);
+}
+
 // Replaces the Pallas kernel spray_tpu/kernels/traverse.py
 // `_nearest_fused_kernel` (all routed domain rounds of one intersect in one
 // launch, best (t, global code) carried per ray).
@@ -317,12 +372,9 @@ __device__ __forceinline__ void flush_counts(unsigned long long* counters,
 // fortieth of that bound was divergence: the 32 rays of a warp sit at
 // different nodes and leaves, a leaf is a serial loop of C tests, and the
 // stack spills to local memory.
-// Design: one warp walks one ray (walk_domain_warp), so a warp never
-// diverges and a leaf's C tests run 32 at a time on coalesced rows.  A block
-// takes 256 consecutive rays, compacts the live ones (tmax > 0) into a
-// shared-memory queue, and its 8 warps pull rays from it until it is empty:
-// work follows live rays, and a dead lane only stores t = tmax, code = -1.
-// Each ray loops over its packet's domain list front to back.
+// Design: one warp walks one ray (walk_domain_warp, nearest_rays), so a
+// warp never diverges and a leaf's C tests run 32 at a time on coalesced
+// rows.
 // 4 resident blocks per SM: 5 and more cap the registers and spill.
 __global__ void __launch_bounds__(SPRAY_BLOCK, 4)
 nearest_kernel(const int* __restrict__ order, int n_rounds, int packet,
@@ -332,35 +384,35 @@ nearest_kernel(const int* __restrict__ order, int n_rounds, int packet,
                int* __restrict__ out_code,
                unsigned long long* __restrict__ counters) {
     __shared__ WalkShared sh;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int ray0 = blockIdx.x * SPRAY_BLOCK;
-    const int mine = ray0 + threadIdx.x;
-    const float hi = mine < n ? tmax[mine] : 0.f;
-    const bool live = hi > 0.f;  // an empty window is a dead lane
-    if (mine < n && !live) {
-        out_t[mine] = hi;
-        out_code[mine] = -1;
-    }
-    const int total = queue_live_rays(sh, live);
-    Counts cnt = {0, 0, 0};
-    for (int q; (q = next_live_ray(sh, total, lane)) >= 0;) {
-        const int i = ray0 + q;
-        const Ray r = load_ray(o, d, tmin, i);
-        float best_t = tmax[i];
-        int best_code = -1;
-        const int* ord = order + (size_t)(i / packet) * n_rounds;
-        for (int k = 0; k < n_rounds; ++k) {
-            const int dom = ord[k];
-            if (dom < 0) break;
-            walk_domain_warp<false>(pg, dom, r, best_t, best_code, cnt,
-                                    sh.stk_m[warp], sh.stk_t[warp], lane);
-        }
-        if (lane == 0) {
-            out_t[i] = best_t;
-            out_code[i] = best_code;
-        }
-    }
-    if (lane == 0) flush_counts(counters, cnt);
+    nearest_rays<false>(sh, order, n_rounds, packet, o, d, tmin, tmax, n, pg,
+                        out_t, out_code, counters);
+}
+
+// Replaces the Pallas kernel spray_tpu/kernels/traverse.py `_nearest_kernel`
+// (`_nearest_body`): ONE domain per packet, chosen by the (P,) bucket map,
+// as the out-of-core epoch slots, the per-round routed modes and the
+// single-domain intersector launch it.  Its contract differs from
+// nearest_kernel's in two ways, both the TPU kernel's own: the code is
+// domain-local (cluster * C + row), and a dead packet (bucket < 0) writes
+// t = 0 and code = -1 on every lane, where a live packet's lane without a
+// hit keeps its tmax.
+// Bound on the H100: as nearest_kernel, the FP32 arithmetic of the
+// ray-triangle tests over 67 TFLOP/s; the slot's pages are read once per
+// ray that reaches them, far fewer bytes than that work's operations.
+// Design: nearest_kernel's warp walk over a one-entry list.  The epoch
+// scheduler launches it over its whole padded wavefront, most packets
+// sparse or dead: the block's queue of live rays keeps their lanes from
+// costing a walk.
+__global__ void __launch_bounds__(SPRAY_BLOCK, 4)
+nearest_slot_kernel(const int* __restrict__ bucket, int n_dom, int packet,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ tmin,
+                    const float* __restrict__ tmax, int n, Pages pg,
+                    float* __restrict__ out_t, int* __restrict__ out_code,
+                    unsigned long long* __restrict__ counters) {
+    __shared__ WalkShared sh;
+    nearest_rays<true>(sh, bucket, n_dom, packet, o, d, tmin, tmax, n, pg,
+                       out_t, out_code, counters);
 }
 
 // Replaces the Pallas kernels spray_tpu/kernels/traverse.py
@@ -406,146 +458,6 @@ anyhit_kernel(const int* __restrict__ order, int n_rounds, int packet,
         if (lane == 0) out_occ[i] = occ ? 1 : 0;
     }
     if (lane == 0) flush_counts(counters, cnt);
-}
-
-// ----------------------------------------------------- thread per ray ----
-
-// Walks one domain's 8-wide BVH for one ray with a per-thread ordered
-// stack: the nearest hit, best_t / best_code as in walk_domain_warp.  Visits
-// the same nodes and leaves in the same order as the warp walk.  Its leaf
-// loop keeps its own copy of the Woop arithmetic of woop_test / hit_key /
-// take_key (sharing them measured slower here); the copy goes when
-// nearest_slot_kernel adopts the warp walk.
-__device__ void walk_domain_per_thread(const Pages& pg, int dom, const Ray& r,
-                                       float& best_t, int& best_code,
-                                       Counts& cnt) {
-    const int c3 = 3 * pg.c;
-    const float* bounds = pg.bounds + (size_t)dom * pg.nn * 48;
-    const int* meta = pg.meta + (size_t)dom * pg.nn * 8;
-    const float* wdom = pg.w + (size_t)dom * pg.nc * 4 * c3;
-
-    int stk_m[SPRAY_STACK];
-    float stk_t[SPRAY_STACK];
-    int sp = 0;
-    stk_m[sp] = 0;  // the root node
-    stk_t[sp] = r.tmin;
-    ++sp;
-
-    while (sp > 0) {
-        --sp;
-        const int m = stk_m[sp];
-        if (stk_t[sp] > best_t) continue;  // culled by a nearer hit since
-        if (m >= 0) {
-            // internal node: slab-test its 8 children, push the hit ones
-            // so the nearest is on top (front-to-back visit order)
-            ++cnt.nodes;
-            float ct[8];
-            int cm[8];
-            int k = 0;
-            const float* nb = bounds + (size_t)m * 48;
-            const int* nm = meta + (size_t)m * 8;
-            for (int j = 0; j < 8; ++j) {
-                const int mj = nm[j];
-                if (mj == -1) continue;  // empty / padded slot
-                const float te = slab_entry(nb + 6 * j, r, r.tmin, best_t);
-                if (!(te < __int_as_float(0x7F800000))) continue;
-                // insertion sort by entry t (stable: ties keep slot order)
-                int q = k++;
-                while (q > 0 && ct[q - 1] > te) {
-                    ct[q] = ct[q - 1];
-                    cm[q] = cm[q - 1];
-                    --q;
-                }
-                ct[q] = te;
-                cm[q] = mj;
-            }
-            if (sp + k > SPRAY_STACK) __trap();  // host checks 7*depth+1
-            for (int q = k - 1; q >= 0; --q) {
-                stk_m[sp] = cm[q];
-                stk_t[sp] = ct[q];
-                ++sp;
-            }
-            continue;
-        }
-        // leaf: one cluster of C Woop-transformed triangles
-        ++cnt.leaves;
-        const int cid = -(m + 2);
-        const float* W = wdom + (size_t)cid * 4 * c3;
-        int kmin = SPRAY_INF_KEY;
-        cnt.tests += pg.c;
-        for (int i = 0; i < pg.c; ++i) {
-            const float* wu = W + i;
-            const float* wv = W + pg.c + i;
-            const float* ww = W + 2 * pg.c + i;
-            const float dw = dot3_rn(r.dx, r.dy, r.dz, ww, c3);
-            if (!(fabsf(dw) > 1e-20f)) continue;
-            const float ow = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, ww, c3), ww[3 * c3]);
-            const float t = __fdiv_rn(-ow, dw);
-            const float ou = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, wu, c3), wu[3 * c3]);
-            const float du = dot3_rn(r.dx, r.dy, r.dz, wu, c3);
-            const float ov = __fadd_rn(dot3_rn(r.ox, r.oy, r.oz, wv, c3), wv[3 * c3]);
-            const float dv = dot3_rn(r.dx, r.dy, r.dz, wv, c3);
-            const float u = __fadd_rn(ou, __fmul_rn(t, du));
-            const float v = __fadd_rn(ov, __fmul_rn(t, dv));
-            const bool in_uv = u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f;
-            if (in_uv && t >= r.tmin && t < best_t) {
-                // -0.0 would bit-cast to INT_MIN and hide every real hit
-                const float tc = t > 0.f ? t : 0.f;
-                const int key = (__float_as_int(tc) & ~127) | i;
-                kmin = min(kmin, key);
-            }
-        }
-        if (kmin != SPRAY_INF_KEY) {
-            // t rebuilt ROUNDED UP: windows only ever widen, never over-cull
-            const float t_up = __int_as_float((kmin & ~127) + 128);
-            if (t_up < best_t) {
-                best_t = t_up;
-                best_code = (dom * pg.nc + cid) * pg.c + (kmin & 127);
-            }
-        }
-    }
-}
-
-// Replaces the Pallas kernel spray_tpu/kernels/traverse.py `_nearest_kernel`
-// (`_nearest_body`): ONE domain per packet, chosen by the (P,) bucket map,
-// as the out-of-core epoch slots and the single-domain intersector launch
-// it.  Its contract differs from nearest_kernel's in two ways, both the TPU
-// kernel's own: the code is domain-local (cluster * C + row), and a dead
-// packet (bucket < 0) writes t = 0 and code = -1 on every lane, where a
-// live packet's lane without a hit keeps its tmax.
-// Bound on the H100: as nearest_kernel, the FP32 arithmetic of the
-// ray-triangle tests over 67 TFLOP/s; the slot's pages are read once per
-// ray that reaches them, far fewer bytes than that work's operations.
-// Design: one thread per ray with a private stack (walk_domain_per_thread);
-// a dead packet's threads only store.  Divergence within a warp and sparse
-// live lanes keep it far from its bound.
-__global__ void __launch_bounds__(SPRAY_BLOCK)
-nearest_slot_kernel(const int* __restrict__ bucket, int n_dom, int packet,
-                    const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ tmin,
-                    const float* __restrict__ tmax, int n, Pages pg,
-                    float* __restrict__ out_t, int* __restrict__ out_code,
-                    unsigned long long* __restrict__ counters) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int dom = bucket[i / packet];
-    if (dom < 0) {  // dead packet
-        out_t[i] = 0.f;
-        out_code[i] = -1;
-        return;
-    }
-    if (dom >= n_dom) __trap();  // a bucket names a page the call lacks
-    float best_t = tmax[i];
-    int best_code = -1;
-    Counts cnt = {0, 0, 0};
-    if (best_t > 0.f) {
-        const Ray r = load_ray(o, d, tmin, i);
-        walk_domain_per_thread(pg, dom, r, best_t, best_code, cnt);
-    }
-    out_t[i] = best_t;
-    // the walk carries the global code (dom * Nc + cid) * C + row
-    out_code[i] = best_code >= 0 ? best_code - dom * pg.nc * pg.c : -1;
-    flush_counts(counters, cnt);
 }
 
 }  // namespace

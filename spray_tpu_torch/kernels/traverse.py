@@ -7,14 +7,15 @@ Counterpart of ``spray_tpu/kernels/traverse.py``.  The TPU kernels
 (`_nearest_fused_kernel`, `_anyhit_fused_kernel`, `_anyhit_kernel`,
 `_nearest_kernel`) walk a packet of rays on lanes through a shared stack.
 The port's CUDA kernels (``csrc/traverse.cu``) walk ray by ray, every ray in
-the same front-to-back order: `nearest_kernel` and `anyhit_kernel` (bound by
-the FP32 operations of the ray-triangle tests on the H100) give each live ray
-one WARP, whose lanes spread over a node's 8 children and a leaf's C
-triangles, with the stack in shared memory and a block-level queue of live
-rays, so no lane waits on another ray's path; `nearest_slot_kernel` gives
-each ray one thread and a private stack.  `walk_reference` follows the BVH
-the same way on the host and is what both designs are held against, counts
-included.  All keep the same result contract:
+the same front-to-back order: `nearest_kernel`, `nearest_slot_kernel` and
+`anyhit_kernel` (bound by the FP32 operations of the ray-triangle tests on
+the H100) give each live ray one WARP, whose lanes spread over a node's 8
+children and a leaf's C triangles, with the stack in shared memory and a
+block-level queue of live rays, so no lane waits on another ray's path; the
+two nearest kernels share one body, the slot kernel walking a one-entry
+list.  `walk_reference` follows the BVH the same way on the host and is what
+every kernel is held against, counts included.  All keep the same result
+contract:
 
   - nearest: the min over a cluster's rows of the packed key
         key = (bits(max(t, 0)) & ~127) | row        (INF_KEY on miss)
@@ -197,9 +198,9 @@ def nearest_slot_reference(bucket, o, d, tmin, tmax, bounds, meta, w, packet):
 def child_ranks(te, hit):
     """Rank of each of a node's 8 children among its HIT children by
     (entry distance, slot index), -1 for a missed child: the count the
-    warp-per-ray kernels take with 8 shuffles.  It is the order of the
-    per-thread kernel's stable insertion sort; the child of rank q is pushed
-    at stack offset k - 1 - q of k hit children, the nearest on top."""
+    warp-per-ray kernels take with 8 shuffles.  It is the order of a stable
+    insertion sort by entry distance; the child of rank q is pushed at stack
+    offset k - 1 - q of k hit children, the nearest on top."""
     slot = np.arange(te.shape[0])
     before = (te[None, :] < te[:, None]) | (
         (te[None, :] == te[:, None]) & (slot[None, :] < slot[:, None]))
@@ -209,7 +210,9 @@ def child_ranks(te, hit):
 def walk_reference(order, o, d, tmin, tmax, bounds, meta, w, packet,
                    occl=False, stack=128):
     """BVH-following plain version of `nearest_kernel` (occl False) and
-    `anyhit_kernel` (occl True): a host loop per ray that walks each listed
+    `anyhit_kernel` (occl True), and of `nearest_slot_kernel` on one-entry
+    lists (`order` = bucket[:, None], codes less the domain offset, dead
+    packets t 0): a host loop per ray that walks each listed
     domain's tree exactly as the CUDA kernels do -- an ordered stack of
     (child, entry t) culled at pop time, a node's hit children pushed by
     `child_ranks`, a leaf's C rows tested with `_dense_keys`' arithmetic and

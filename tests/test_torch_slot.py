@@ -176,3 +176,66 @@ def test_slot_wrapper_checks_and_signature():
     t, code = traverse.nearest_slot(bucket, *rays, *pages, 256, 1)
     assert traverse.launches == before  # the plain version never counts
     assert (code == -1).all() and (t == 1).all()
+
+
+def _slot_walk(bucket, rays, pages, packet):
+    """`walk_reference` over one-entry lists bucket[:, None], mapped to the
+    slot contract: codes less the domain offset, a dead packet's lanes t 0
+    and code -1.  This is what the warp-per-ray `nearest_slot_kernel`
+    computes, counts included."""
+    t, code, cnt = traverse.walk_reference(bucket[:, None], *rays, *pages, packet)
+    dom = bucket.repeat_interleave(packet)
+    per_dom = pages[2].shape[1] * (pages[2].shape[3] // 3)
+    code = torch.where(code >= 0, code - dom * per_dom, -1)
+    dead = dom < 0
+    return (torch.where(dead, torch.zeros_like(t), t),
+            torch.where(dead, -1, code).to(torch.int32), cnt)
+
+
+@pytest.mark.parametrize("packet", [128, 256])
+def test_slot_walk_matches_slot_reference_and_pallas(packet):
+    """On three pages, with a packet of empty windows (bucket -1), a packet
+    of live windows but bucket -1 and dead lanes in live packets: the walk
+    in the slot contract == `nearest_slot_reference` (t bit for bit, codes
+    off key-quantum ties) and == spray_tpu's Pallas `_nearest_kernel`
+    (interpret mode) to the traversal tests' bar."""
+    from spray_tpu.kernels import multidomain as jmd
+
+    scene = SCENES["wisps"][0]()
+    pages = jmd.build_cluster_domains(scene, 3)
+    pg = [torch.as_tensor(np.ascontiguousarray(pages[k]))
+          for k in ("bounds", "meta", "w")]
+    n = 5 * packet - 40
+    o, d = _rand_rays(scene, n, 9)
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[::7] = 0.0  # dead lanes
+    tmax[packet:2 * packet] = 0.0  # a packet with no live window
+    rays = pad_rays(*(torch.as_tensor(a) for a in (o, d, tmin, tmax)), packet)
+    bucket = torch.tensor([2, -1, 0, -1, 1], dtype=torch.int32)
+    depth = traverse.tree_depth(pages["meta"])
+    t_w, c_w, cnt = _slot_walk(bucket, rays, pg, packet)
+    t_s, c_s = traverse.nearest_slot(bucket, *rays, *pg, packet, depth)
+    np.testing.assert_array_equal(t_w.numpy().view(np.int32),
+                                  t_s.numpy().view(np.int32))
+    np.testing.assert_array_equal((c_w >= 0).numpy(), (c_s >= 0).numpy())
+    assert (c_w != c_s).float().mean() < 0.01
+    assert cnt["leaves"] > 0 and cnt["tests"] == cnt["leaves"] * (pg[2].shape[3] // 3)
+    dom = bucket.repeat_interleave(packet)
+    assert (t_w[dom < 0] == 0).all() and (c_w[dom < 0] == -1).all()
+    dead_lane = (dom >= 0) & (rays[3] <= 0)
+    assert dead_lane.any() and (c_w[dead_lane] == -1).all()
+    np.testing.assert_array_equal(t_w[dead_lane].numpy(), rays[3][dead_lane].numpy())
+    aug, _ = jt._rays_to_aug(*(jnp.asarray(a) for a in (o, d, tmin, tmax)), packet)
+    tj, cj = jt._nearest_call(jnp.asarray(bucket.numpy()),
+                              *(jnp.asarray(pages[k]) for k in ("bounds", "meta", "w")),
+                              aug, interpret=True)
+    tj, cj = np.asarray(tj).reshape(-1), np.asarray(cj).reshape(-1)
+    tw, cw = t_w.numpy(), c_w.numpy()
+    np.testing.assert_array_equal(cw >= 0, cj >= 0)
+    np.testing.assert_array_equal(tw[cw < 0], tj[cw < 0])
+    hit = cw >= 0
+    assert hit.sum() > 20
+    np.testing.assert_allclose(tw[hit], tj[hit], rtol=2e-4)
+    real = (cw[hit] != cj[hit]) & (np.abs(tw[hit] - tj[hit]) > 1e-4 * tw[hit])
+    assert real.mean() < 0.002
