@@ -9,7 +9,8 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      all started together; each kernel's registers, shared memory, stack and
      spills from nvcc's report, and the resident blocks per SM of the three
      traversal kernels (warp-per-ray walks, none may spill) and of the
-     split visit kernel;
+     split nearest visit kernel, and the visits a block of each visit kernel
+     walks;
   2. kernel parity: each CUDA kernel against its plain PyTorch version and
      the torch brute oracle, on a 40,962-tri wisp scene (6 domains, 41
      supernodes), 16,384 random rays plus the bounce-1 and shadow wavefronts
@@ -59,11 +60,17 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      the phase-4 frame through default_intersector(prefer="sweep") and
      prefer="binned" (frame time, Grays/s, peak memory, visits, rounds or
      chunks and host syncs per frame, every visit launch of one frame timed
-     against its bound, per trace call the runs per launch, the longest and
-     median run and the blocks launched, sampled runs of sampled launches
-     of every trace call (the longest among them, cut to their first
-     VISIT_SAMPLE_LEN visits) held against the plain versions, the image
-     against phase 4's);
+     against its bound (the any-hit's counts the tests the serial order
+     needs, binned.anyhit_serial_tests, and the tests its blocks did are
+     printed beside it), per trace call the runs per launch, the longest and
+     median run and the blocks launched (one per span of visits), sampled
+     runs of sampled launches of every trace call (the longest among them,
+     cut to their first VISIT_SAMPLE_LEN visits, so that runs cross blocks
+     in both kernels) held against the plain versions, the image against
+     phase 4's); constructed launches of the split any-hit kernel (a hit
+     only in a long run's last span or only in its first, packets occluded
+     at input, visits between a run's last and the next first) against the
+     plain version;
      the same frame through routed="grid" (byte-identical image; the slot
      and one-entry any-hit kernels over every call of one frame against
      their bounds, sampled calls against the plain versions and the slot
@@ -71,15 +78,16 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      per-round form on the frame's two shadow wavefronts (equal occlusion,
      times of both); PallasBruteIntersector
      at 512x512, spp 4, bounces 2 on cornell_box() and on phase 2's wisp
-     scene (frame time, every brute launch of one frame against its bound,
-     sampled ray blocks against the plain versions, the image against the
-     default intersector's).
+     scene (frame time, the live lanes of every brute launch of one frame,
+     each launch against its bound, sampled ray blocks against the plain
+     versions, the image against the default intersector's).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the kernels JSON (seven kernels); the
 last line is {"ok": true, "device": {...}}.  Needs torch with CUDA and
 nvcc; imports nothing of JAX.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -876,9 +884,11 @@ def visit_bound_parts(torch, kind, args, tests):
     memory rate, gated clusters) of one visit launch.  Operations: MT_OPS
     per ray-triangle test; nearest tests every lane of a packet against
     every triangle of every gated cluster of its run, any-hit the tests
-    the kernel counted (an occluded lane stops).  Bytes: each gated
-    cluster's 9 x 128 floats, per run one packet of rays and its state in
-    and out, and the visit list."""
+    the serial order needs (`tests`, from binned.anyhit_serial_tests: none
+    on a lane occluded at input or with an empty window, the others up to
+    and including their first hit).  Bytes: each gated cluster's 9 x 128
+    floats, per run one packet of rays and its state in and out, and the
+    visit list."""
     cmask, first, last = args[2], args[3], args[4]
     is_last = last != 0
     opened = (first != 0).cumsum(0) - (is_last.cumsum(0) - is_last.long())
@@ -926,39 +936,57 @@ def sample_runs(torch, np, vlist, k):
             [b - a + 1 for a, b in live])
 
 
-def visit_kernel_stats(torch, np, tag, groups, smi):
-    """One frame's visit launches, grouped by trace call: every launch timed
-    against its bound, the runs per launch, the longest and median run and
-    the blocks launched of each trace call, and VISIT_SAMPLE_LAUNCHES
-    launches of each trace call held against the plain version on
-    VISIT_SAMPLE_RUNS runs each (some longer than the nearest kernel's span
-    of visits a block, so that the cross-block merge is compared).
-    Returns stats by kind."""
+def visit_spans():
+    """Visits one block walks, by kind, from the built library."""
     from spray_tpu_torch.kernels import _build
 
-    span = _build.load("binned").spray_binned_span()
+    lib = _build.load("binned")
+    return {"nearest": lib.spray_binned_span(),
+            "anyhit": lib.spray_binned_anyhit_span()}
+
+
+def visit_kernel_stats(torch, np, tag, groups, smi):
+    """One frame's visit launches, grouped by trace call: every launch timed
+    against its bound (the any-hit's: the tests the serial order needs,
+    with the tests its blocks did beside them), the runs per launch, the
+    longest and median run and the blocks launched of each trace call, and
+    VISIT_SAMPLE_LAUNCHES launches of each trace call held against the
+    plain version on VISIT_SAMPLE_RUNS runs each (some longer than the
+    kernel's span of visits a block, so that the cross-block merge is
+    compared).  Returns stats by kind."""
+    from spray_tpu_torch.kernels import binned
+
+    spans = visit_spans()
     dev = groups[0][1][0][0].device
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     keys = ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms", "s_ops_ms",
             "s_bytes_ms", "s_err")
     st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "visits": 0,
               "clusters": 0, "s_launches": 0, "s_runs": 0, "s_long_runs": 0,
-              "blocks": 0, "runs": 0, "longest_run": 0}
+              "blocks": 0, "runs": 0, "longest_run": 0, "kernel_tests": 0,
+              "serial_tests": 0}
           for k in ("nearest", "anyhit")}
 
     def tests_of(fn, kind, args):
+        """(tests the serial order needs, tests the kernel did) of an
+        any-hit launch; (None, None) for the nearest."""
         if kind == "nearest":
-            return None
+            return None, None
         counter.zero_()
         fn(*args, counter=counter)
-        return int(counter)
+        serial = int(binned.anyhit_serial_tests(*args).sum())
+        return serial, int(counter)
 
     for gi, (kind, calls) in enumerate(groups):
         fn, plain = visit_fns(kind)
         s = st[kind]
+        span = spans[kind]
         runs_per, lengths, blocks = [], [], 0
         for args in calls:
-            tests = tests_of(fn, kind, args)
+            tests, done = tests_of(fn, kind, args)
+            if kind == "anyhit":
+                s["serial_tests"] += tests
+                s["kernel_tests"] += done
             _, ms = timed_once(torch, lambda: fn(*args))
             ops_ms, bytes_ms, clusters = visit_bound_parts(torch, kind, args, tests)
             s["ms"] += ms
@@ -970,16 +998,15 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
             a, b = run_spans(np, args[3].cpu().numpy(), args[4].cpu().numpy())
             runs_per.append(len(a))
             lengths.extend((b - a + 1).tolist())
-            # the nearest kernel: a block per span of visits; any-hit: per visit
-            nv = args[0].numel()
-            blocks += -(-nv // span) if kind == "nearest" else nv
+            blocks += -(-args[0].numel() // span)  # a block per span of visits
         s["blocks"] += blocks
         s["runs"] += len(lengths)
         s["longest_run"] = max([s["longest_run"], *lengths])
         print(f"{tag} call {gi} {kind}: {len(calls)} launches; runs per launch "
               f"min {min(runs_per)} median {int(np.median(runs_per))} max "
               f"{max(runs_per)}; run length (visits) longest {max(lengths)} "
-              f"median {int(np.median(lengths))}; blocks launched {blocks}",
+              f"median {int(np.median(lengths))}; blocks launched {blocks} (one per "
+              f"{span} visits)",
               flush=True)
         pick = np.linspace(0, len(calls) - 1,
                            min(VISIT_SAMPLE_LAUNCHES, len(calls))).astype(int)
@@ -995,7 +1022,7 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
             s["s_err"] = max(s["s_err"], compare_exact(
                 f"{tag} call {gi} {kind} launch {i} ({runs} runs)", ref, got))
             ops_ms, bytes_ms, _ = visit_bound_parts(torch, kind, sub,
-                                                    tests_of(fn, kind, sub))
+                                                    tests_of(fn, kind, sub)[0])
             s["s_ms"] += cuda_ms(torch, lambda: fn(*sub))
             s["s_plain_ms"] += plain_ms
             s["s_ops_ms"] += ops_ms
@@ -1003,13 +1030,18 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
             s["s_launches"] += 1
             s["s_runs"] += runs
     for kind, s in st.items():
-        name = f"binned_{kind}_kernel"
+        name, span = f"binned_{kind}_kernel", spans[kind]
         check(f"{tag} {name} held against its plain version", s["s_launches"] > 0,
               f"({s['s_launches']} launches, {s['s_runs']} runs, "
               f"{s['s_long_runs']} longer than {span} visits)")
-        if kind == "nearest" and s["longest_run"] > span:
+        if s["longest_run"] > span:
             check(f"{tag} {name}: sampled runs cross blocks", s["s_long_runs"] > 1,
                   f"({s['s_long_runs']} sampled runs longer than {span} visits)")
+        if kind == "anyhit":
+            s["extra_work"] = s["kernel_tests"] / max(1, s["serial_tests"])
+            print(f"{tag} {name}: one frame's tests: {s['serial_tests']} that the "
+                  f"serial order needs (the bound), {s['kernel_tests']} that the "
+                  f"kernel's blocks did ({s['extra_work']:.4f} x)", flush=True)
         fb, fby = bound_of(s["ops_ms"], s["bytes_ms"])
         sb, sby = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
         s.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
@@ -1134,6 +1166,76 @@ def check_split_tie(torch, np, small, dev):
     check("phase2 constructed launch: rays tied between a supernode and its "
           "copy keep the earlier visit", min(early) > 0 and max(late) == 0,
           f"(earlier copy kept on {early} lanes of packets 0, 1; later on {late})")
+
+
+def check_split_anyhit(torch, np, dev):
+    """Constructed launches of binned_anyhit_kernel, each == its plain
+    version: a run over many spans whose only hit lies in its last span; a
+    run whose hit lies in its first span (the later spans find nothing and
+    must keep the 1); a packet occluded at input (and one with some lanes
+    occluded); visits between a run's `last` and the next `first`.  The
+    table: supernode 0 holds one triangle (z = 0) at row 5 of cluster 0,
+    supernode 1 the same at z = -1, supernode 2 real triangles that no ray
+    reaches, supernode 3 the null one; 3 packets of rays look down -z from
+    z = 2, some with windows that end first or are empty."""
+    from spray_tpu_torch.kernels import binned
+
+    span = visit_spans()["anyhit"]
+    group_c, bp = binned.GROUP * binned.CLUSTER, binned.BP
+    tri9 = np.zeros((4, 9, group_c), np.float32)
+    for sn, z in ((0, 0.0), (1, -1.0)):
+        tri9[sn, 2, 5] = z
+        tri9[sn, 3, 5] = tri9[sn, 7, 5] = 1.0  # e1 = (1, 0, 0), e2 = (0, 1, 0)
+    tri9[2, 0] = 100.0  # v0 = (100, 0, 0)
+    tri9[2, 3] = tri9[2, 7] = 1.0
+    n = 3 * bp
+    rs = np.random.RandomState(11)
+    o = np.concatenate([rs.uniform(0.0, 0.5, (n, 2)), np.full((n, 1), 2.0)],
+                       axis=1).astype(np.float32)
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (n, 1))
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[3::17] = 1.5  # ends before either triangle
+    tmax[5::19] = 0.0  # empty
+    far, length = [2, 0xFF], 6 * span + 1
+
+    def run(p, sns):
+        return [(p, *x, int(j == 0), int(j == len(sns) - 1))
+                for j, x in enumerate(sns)]
+
+    occ_some = np.zeros(n, np.int32)
+    occ_some[:bp] = 1
+    occ_some[bp:2 * bp:3] = 1
+    none = np.zeros(n, np.int32)
+    cases = [  # (name, visits, input flags, packets whose run reaches a hit)
+        ("hit only in the last span", run(0, [far] * (length - 1) + [[0, 1]]),
+         none, [0]),
+        ("hit in the first span", run(0, [[0, 1]] + [far] * (length - 1)),
+         none, [0]),
+        ("packets occluded at input", run(0, [[0, 1]] + [far] * length)
+         + run(1, [far] * length + [[1, 1]]), occ_some, [0, 1]),
+        ("visits between a last and the next first", run(0, [far, far])
+         + [(1, 0, 1, 0, 0), (1, 1, 1, 0, 0)] + run(2, [[1, 1]]), none, [2]),
+    ]
+    rays = [torch.as_tensor(x, device=dev) for x in (o, d, tmin, tmax)]
+    tri9 = torch.as_tensor(tri9, device=dev)
+    hits = (tmax > 2.0).astype(np.int32)  # lanes whose window reaches z = 0
+    for name, visits, occ, hit_packets in cases:
+        vis = np.array(visits, np.int32)
+        cols = [torch.as_tensor(np.ascontiguousarray(vis[:, i]), device=dev)
+                for i in range(5)]
+        occ_t = torch.as_tensor(occ, device=dev)
+        got = binned.anyhit_visits(*cols, *rays, tri9, occ_t)
+        torch.cuda.synchronize()
+        ref = binned.anyhit_visits_reference(*cols, *rays, tri9, occ_t)
+        compare_exact(f"phase7 constructed binned_anyhit_kernel launch, {name} "
+                      f"({len(vis)} visits, blocks of {span})", ref, got)
+        want = occ.copy()
+        for p in hit_packets:
+            want[p * bp:(p + 1) * bp] |= hits[p * bp:(p + 1) * bp]
+        check(f"phase7 constructed launch, {name}: the expected flags",
+              bool((got.cpu().numpy() == want).all()),
+              f"({int(want.sum())} lanes occluded)")
 
 
 def phase3_alternates(torch, np, small, cam64, cfg64, sisect, img_k, dev):
@@ -1295,7 +1397,11 @@ def brute_kernel_stats(torch, np, tag, isect, calls, smi):
 
     for ci, (kind, *rays) in enumerate(calls):
         rays = tuple(x.contiguous() for x in rays)
-        fn = brute.brute_nearest if kind == "nearest" else brute.brute_anyhit
+        print(f"{tag} call {ci} {kind}: {rays[0].shape[0]} lanes, "
+              f"{int((rays[3] > rays[2]).sum())} live", flush=True)
+        # the nearest kernel with the table the intersector packed once
+        fn = (functools.partial(brute.brute_nearest, tri12=isect.tri12)
+              if kind == "nearest" else brute.brute_anyhit)
         plain = (brute.brute_nearest_reference if kind == "nearest"
                  else brute.brute_anyhit_reference)
         s = st[kind]
@@ -1465,10 +1571,11 @@ def main():
     binned_lib = _build.load("binned")
     binned_span, binned_bps = (binned_lib.spray_binned_span(),
                                binned_lib.spray_binned_blocks_per_sm())
+    anyhit_span = binned_lib.spray_binned_anyhit_span()
     print("occupancy (resident blocks of 256 threads per SM, of the 8 that "
           f"fill its 64 warps): {blocks_per_sm}; binned_nearest_kernel: "
           f"{binned_bps} blocks of 128 threads per SM, {binned_span} visits a "
-          "block", flush=True)
+          f"block; binned_anyhit_kernel: {anyhit_span} visits a block", flush=True)
     check("phase1 binned_nearest_kernel resident on the card", binned_bps > 0,
           f"({binned_bps} blocks per SM)")
     for k in WARP_PER_RAY:
@@ -1669,6 +1776,7 @@ def main():
         visit_frames[prefer], visit[prefer], visit_launches[prefer] = (
             phase7_visit_path(torch, np, prefer, scene, cam, cfg, img, dev, smi))
         phase_done(f"phase7 ({prefer})")
+    check_split_anyhit(torch, np, dev)
     routed, grid_k, routed_launches = phase7_routed(
         torch, np, scene, pages, cam, cfg, isect, img, shadows, dev, smi)
     del pages, shadows
@@ -1761,7 +1869,12 @@ def main():
              "frame_blocks": sw["blocks"],
              **({"design": f"split_runs, {binned_span} visits a block",
                  "blocks_per_sm": binned_bps} if kind == "nearest" else
-                {"design": "block_per_run"}),
+                {"design": f"split_runs, {anyhit_span} visits a block, flags "
+                           "shared in place",
+                 "bound_counts": "tests the serial order needs",
+                 "frame_serial_tests": sw["serial_tests"],
+                 "frame_kernel_tests": sw["kernel_tests"],
+                 "frame_extra_work": sw["extra_work"]}),
              "binned": {"max_abs_err": bn["s_err"], "ms": bn["s_ms"],
                         "plain_ms": bn["s_plain_ms"], "bound_ms": bn["bound_ms"],
                         "bound_by": bn["bound_by"], "frame_ms": bn["ms"],
@@ -1771,7 +1884,11 @@ def main():
                         "frame_visits": bn["visits"],
                         "frame_clusters": bn["clusters"], "frame_runs": bn["runs"],
                         "frame_longest_run": bn["longest_run"],
-                        "frame_blocks": bn["blocks"]}}))
+                        "frame_blocks": bn["blocks"],
+                        **({"frame_serial_tests": bn["serial_tests"],
+                            "frame_kernel_tests": bn["kernel_tests"],
+                            "frame_extra_work": bn["extra_work"]}
+                           if kind == "anyhit" else {})}}))
     for kind, line in (("nearest", 57), ("anyhit", 84)):
         name = f"brute_{kind}_kernel"
         w, c = brute_k["wisp41k"][kind], brute_k["cornell"][kind]
@@ -1782,6 +1899,8 @@ def main():
             f"{BRUTE_SAMPLE_BLOCKS} blocks of 256 rays of each call of one "
             f"frame on {brute_frames['wisp41k']['tris']} tris ({w['s_rays']} rays)",
             {"max_abs_err": max(w["s_err"], c["s_err"]),
+             "design": ("live-ray queue, a ray a thread, staged test, 16-byte "
+                        "table rows" if kind == "nearest" else "thread_per_ray"),
              "cornell": {"max_abs_err": c["s_err"], "ms": c["s_ms"],
                          "plain_ms": c["s_plain_ms"], "bound_ms": c["bound_ms"],
                          "bound_by": c["bound_by"], "frame_ms": c["ms"],

@@ -30,8 +30,10 @@ _SIGNATURES = {
     "spray_stack_size": [],
     # which: 0 nearest_kernel, 1 anyhit_kernel, 2 nearest_slot_kernel
     "spray_blocks_per_sm": [_I],
-    # visits one block of binned_nearest_kernel walks; its resident blocks
+    # visits one block of binned_nearest_kernel (binned_anyhit_kernel)
+    # walks; the nearest kernel's resident blocks
     "spray_binned_span": [],
+    "spray_binned_anyhit_span": [],
     "spray_binned_blocks_per_sm": [],
     # order, n_rounds, packet, o, d, tmin, tmax, n, bounds, meta, w,
     # nn, nc, c, out_t, out_code, counters, stream
@@ -43,11 +45,10 @@ _SIGNATURES = {
     # bucket, n_dom, then as spray_nearest
     "spray_nearest_slot": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                            _I, _I, _I, _P, _P, _P, _P],
-    # tri9, ids, num_tris, o, d, tmin, tmax, n, out_t, out_prim, out_u,
-    # out_v, stream
-    "spray_brute_nearest": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                            _P],
-    # ... same up to n, then out_occ, tests, stream
+    # tri12, num_tris, o, d, tmin, tmax, n, out_t, out_prim, out_u, out_v,
+    # stream
+    "spray_brute_nearest": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    # tri9, ids, num_tris, o, d, tmin, tmax, n, out_occ, tests, stream
     "spray_brute_anyhit": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     # pkt, sn, cmask, first, last, n_visits, o, d, tmin, n_packets, tri9,
     # n_super, best_t, best_code (read and updated in place), keys

@@ -12,9 +12,10 @@ can beat any live ray's best t (the commit invariant).  A visit list is flat:
 (``csrc/binned.cu``) run Möller–Trumbore of a packet's 128 rays against each
 masked cluster, with the formula of `core/geom.moller_trumbore`, and
 accumulate the best (t, code) or the occlusion over a packet's run of
-visits: the nearest kernel splits a run over blocks of a few visits each and
-merges their bests per ray (`nearest_visits_split_reference` is its host
-model), the any-hit kernel walks a run in one block.
+visits.  Both kernels split a run over blocks of a few visits each: the
+nearest kernel merges their bests per ray with a 64-bit key
+(`nearest_visits_split_reference` is its host model), the any-hit kernel
+ORs their flags in place (`anyhit_visits_split_reference`).
 
 Where the reference loops on the device (``lax.while_loop``), the port loops
 on the host: each chase round reads one flag from the card.  `stats` counts
@@ -251,18 +252,24 @@ def cluster_masks(ivals, cbox, sn, upper):
 # ---------------------------------------------------------------------------
 
 
+def _run_ranks(first, last, cmask):
+    """(V,) rank of each visit inside its run, or -1 for a visit outside
+    any run or with a zero mask."""
+    idx = torch.arange(first.shape[0], device=first.device)
+    is_first, is_last = first != 0, last != 0
+    start = torch.where(is_first, idx, 0).cummax(dim=0).values
+    # inside a run: more firsts up to here than lasts before here
+    opened = is_first.cumsum(0) - (is_last.cumsum(0) - is_last.long())
+    return torch.where((opened > 0) & (cmask != 0), idx - start, -1)
+
+
 def _run_steps(first, last, cmask):
     """Visits grouped by their rank inside their run: a list, in rank
     order, of the indices of the visits of that rank that lie inside a run
     and have a nonzero mask.  Visits of one rank belong to different runs
     (so to different packets) and can be processed together."""
     nv = first.shape[0]
-    idx = torch.arange(nv, device=first.device)
-    is_first, is_last = first != 0, last != 0
-    start = torch.where(is_first, idx, 0).cummax(dim=0).values
-    # inside a run: more firsts up to here than lasts before here
-    opened = is_first.cumsum(0) - (is_last.cumsum(0) - is_last.long())
-    rank = torch.where((opened > 0) & (cmask != 0), idx - start, -1)
+    rank = _run_ranks(first, last, cmask)
     steps = []
     for j in range(int(rank.max()) + 1 if nv else 0):
         sel = torch.nonzero(rank == j).view(-1)
@@ -407,6 +414,83 @@ def anyhit_visits_reference(pkt, sn, cmask, first, last, o, d, tmin, tmax,
     return oc.view(-1)
 
 
+def anyhit_visits_split_reference(pkt, sn, cmask, first, last, o, d, tmin,
+                                  tmax, tri9, occ, span):
+    """Host model of `binned_anyhit_kernel`'s split of runs over blocks:
+    each span of `span` visits walks its run segments (`_span_segments`)
+    from the run's INPUT flags, and each segment's hits are ORed into the
+    result.  (The kernel's blocks also read the flags other blocks have
+    set; that only skips tests whose answer is already 1.)  Equals
+    `anyhit_visits_reference` at every span.  Takes tensors on any device;
+    returns an updated CPU copy of occ."""
+    pkt, sn, cmask, first, last, o, d, tmin, tmax, tri9, occ = (
+        x.cpu() for x in (pkt, sn, cmask, first, last, o, d, tmin, tmax,
+                          tri9, occ))
+    out = occ.clone()
+    lane = torch.arange(BP)
+    for run, seg in _span_segments(first.numpy(), last.numpy(), span):
+        ray_idx = int(pkt[run]) * BP + lane
+        hit = occ[ray_idx] != 0
+        for v in seg:
+            for k in range(GROUP):
+                if not (int(cmask[v]) >> k) & 1:
+                    continue
+                tm = _cluster_t(tri9, sn[v:v + 1], k, o, d, ray_idx[None])[0]
+                hit |= ((tm > tmin[ray_idx]) & (tm < tmax[ray_idx])).any(dim=0)
+        out[ray_idx] |= hit.to(torch.int32)
+    return out
+
+
+def anyhit_serial_tests(pkt, sn, cmask, first, last, o, d, tmin, tmax, tri9,
+                        occ):
+    """Ray-triangle tests, per lane ((P*BP,) int64), that the serial order
+    of a run needs: the bound of `binned_anyhit_kernel` counts these, not
+    the tests the kernel did, which depend on the order its blocks ran in.
+    A lane occluded at input, or whose window is empty (tmax <= tmin: it
+    can never hit), needs none; any other lane tests every row of every
+    gated cluster of its run, in (visit, cluster, row) order, up to and
+    including its first hit (tmin < t < tmax).  Walks the runs one rank at
+    a time, all clusters of a visit at once, 128 visits (2^24 tests) a
+    step, leaving out packets whose lanes are all done."""
+    dev = o.device
+    tests = torch.zeros(o.shape[0], dtype=torch.int64, device=dev)
+    if first.shape[0] == 0:
+        return tests
+    rank = _run_ranks(first, last, cmask)
+    order = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank + 1).tolist()  # rank -1 first: no tests
+    active = ((occ == 0) & (tmax > tmin)).view(-1, BP)
+    lane = torch.arange(BP, device=dev)
+    cols = torch.arange(GROUP * CLUSTER, device=dev) // CLUSTER
+    step = 128  # visits a step: 128 x 1024 x 128 tests, 64 MB a temporary
+    at = sizes[0]
+    for size in sizes[1:]:
+        vis = order[at:at + size]
+        at += size
+        vis = vis[active[pkt[vis].long()].any(dim=1)]
+        for s0 in range(0, vis.numel(), step):
+            v = vis[s0:s0 + step]
+            p = pkt[v].long()
+            ray_idx = p[:, None] * BP + lane
+            gated = ((cmask[v][:, None] >> cols) & 1) != 0  # (m, G*C)
+            tri = tri9[sn[v].long()]  # (m, 9, G*C)
+            col = lambda a: tri[:, a:a + 3].permute(0, 2, 1)[:, :, None, :]  # noqa: E731
+            tm, _, _, _ = geom.moller_trumbore(
+                o[ray_idx][:, None], d[ray_idx][:, None], col(0), col(3),
+                col(6))  # (m, G*C, BP)
+            hit = (gated[:, :, None] & (tm > tmin[ray_idx][:, None])
+                   & (tm < tmax[ray_idx][:, None]))
+            found = hit.any(dim=1)  # (m, BP)
+            first_hit = hit.to(torch.uint8).argmax(dim=1)  # the first True
+            upto = gated.cumsum(dim=1)  # gated rows up to each column
+            n_tests = torch.where(found, torch.gather(upto, 1, first_hit),
+                                  upto[:, -1:])
+            act = active[p]
+            tests.view(-1, BP)[p] += torch.where(act, n_tests, 0)
+            active[p] = act & ~found
+    return tests
+
+
 def _check_visits(pkt, sn, cmask, first, last, o, d, tmin, tri9, state):
     dev = o.device
     _build.check_tensors(dev, [
@@ -468,7 +552,10 @@ def anyhit_visits(pkt, sn, cmask, first, last, o, d, tmin, tmax, tri9, occ,
     """The occlusion form of `nearest_visits`: returns an updated copy of
     occ (P*BP,) i32; a hit is any ``tmin < t < tmax`` on a lane not yet
     occluded.  counter: optional (1,) int64 CUDA tensor that receives the
-    ray-triangle tests done (an occluded lane stops testing)."""
+    ray-triangle tests the kernel did.  Its blocks split a run and a lane
+    stops at its flag, which another block may have set, so the count
+    depends on the order the blocks ran in; `anyhit_serial_tests` counts
+    what the serial order needs."""
     _check_visits(pkt, sn, cmask, first, last, o, d, tmin, tri9,
                   [("tmax", tmax, torch.float32), ("occ", occ, torch.int32)])
     if o.device.type == "cpu":

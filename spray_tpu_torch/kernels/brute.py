@@ -4,8 +4,10 @@ hand-written CUDA kernels, with their plain PyTorch versions.
 Counterpart of ``spray_tpu/kernels/brute.py``: the fast path for small
 scenes, where a BVH would be overhead.  The TPU kernels hold an (8, 128) ray
 tile in registers and stream the triangle table from SMEM; the CUDA kernels
-(``csrc/brute.cu``) give each ray a thread and stage the table through shared
-memory.  The contract is the reference's:
+(``csrc/brute.cu``) stage the table through shared memory: the nearest
+kernel queues a block's live rays and gives each thread several of them
+against the table packed as 16-byte vectors (`pack_table`), the any-hit
+kernel gives each ray a thread.  The contract is the reference's:
 
   - nearest: triangles in row order with a strict ``t < best`` and
     ``t >= tmin``, so the lowest row wins an exact tie; rows with id < 0
@@ -96,20 +98,36 @@ def brute_anyhit_reference(tri9, ids, o, d, tmin, tmax):
     return occ
 
 
-def brute_nearest(tri9, ids, o, d, tmin, tmax):
+def pack_table(tri9, ids):
+    """The (T, 12) f32 table `brute_nearest_kernel` reads: rows
+    `[v0 0 | e1 0 | e2 id]`, three 16-byte vectors, the id's int32 bits in
+    the twelfth word."""
+    zero = tri9.new_zeros(tri9.shape[0], 1)
+    return torch.cat([tri9[:, 0:3], zero, tri9[:, 3:6], zero, tri9[:, 6:9],
+                      ids.view(torch.float32)[:, None]], dim=1)
+
+
+def brute_nearest(tri9, ids, o, d, tmin, tmax, tri12=None):
     """Nearest hit of every ray against every row of the table.
 
     tri9 (T, 9) f32 `[v0 | e1 | e2]`, ids (T,) i32; o, d (N, 3), tmin,
-    tmax (N,) f32.  Returns (t, prim, u, v), (N,) each."""
+    tmax (N,) f32; tri12: `pack_table(tri9, ids)`, if the caller keeps it
+    (it is packed here otherwise).  Returns (t, prim, u, v), (N,) each."""
     _check(tri9, ids, o, d, tmin, tmax)
+    if tri12 is not None:
+        _build.check_tensors(o.device, [("tri12", tri12, torch.float32, 2)])
+        if tri12.shape != (tri9.shape[0], 12):
+            raise ValueError("tri12: want (T, 12), pack_table(tri9, ids)")
     if o.device.type == "cpu":
         return brute_nearest_reference(tri9, ids, o, d, tmin, tmax)
     n = o.shape[0]
     t, u, v = (torch.empty_like(tmax) for _ in range(3))
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
     if n:
+        if tri12 is None:
+            tri12 = pack_table(tri9, ids)
         _build.launch("brute", "spray_brute_nearest", o.device,
-                      tri9.data_ptr(), ids.data_ptr(), tri9.shape[0],
+                      tri12.data_ptr(), tri9.shape[0],
                       o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
                       tmax.data_ptr(), n, t.data_ptr(), prim.data_ptr(),
                       u.data_ptr(), v.data_ptr())
@@ -174,11 +192,12 @@ class PallasBruteIntersector:
                                     device=device)
         self.ids = torch.as_tensor(np.ascontiguousarray(ids, np.int32),
                                    device=device)
+        self.tri12 = pack_table(self.tri9, self.ids)  # the nearest kernel's
 
     def intersect(self, o, d, tmin, tmax):
         t, prim, u, v = brute_nearest(
             self.tri9, self.ids, o.contiguous(), d.contiguous(),
-            tmin.contiguous(), tmax.contiguous())
+            tmin.contiguous(), tmax.contiguous(), tri12=self.tri12)
         valid = prim >= 0
         return Hits(t=torch.where(valid, t, tmax), prim=prim, u=u, v=v,
                     valid=valid)

@@ -30,6 +30,7 @@
 #define BINNED_GROUP 8    // clusters per supernode
 #define BINNED_C 128      // triangles per cluster
 #define BINNED_SPAN 2     // visits one block of binned_nearest_kernel walks
+#define BINNED_ANYHIT_SPAN 1  // visits one block of binned_anyhit_kernel walks
 #define BINNED_NO_KEY 0xFFFFFFFFFFFFFFFFull  // a ray with no hit yet
 
 namespace {
@@ -197,55 +198,101 @@ __global__ void binned_nearest_finish(const int* __restrict__ sn,
 }
 
 // Replaces the Pallas kernel spray_tpu/kernels/binned.py `_anyhit_kernel`:
-// a hit is tmin < t < win, win = 0 once occluded.
-// Bound on the H100: the tests the kernel counts (an occluded lane stops)
-// of 46 fp32 operations over 67 TFLOP/s, against the staged clusters and
-// one ray block per run over 3.35 TB/s.
-// Design (first, unoptimised): ONE BLOCK OWNS ONE RUN: the grid has a
-// block per visit, a block whose visit does not start a run returns at
-// once, and a block that starts one walks the run's visits in a loop, its
-// 128 threads each carrying one ray's occlusion in registers; an occluded
-// thread skips the arithmetic, and the block leaves the run when no thread
-// is live.  Clusters are staged one at a time with two barriers each.
+// a hit is tmin < t < tmax on a lane not yet occluded.
+// Bound on the H100: the tests that the serial order needs
+// (kernels/binned.py anyhit_serial_tests: a lane occluded at input or with
+// an empty window needs none, any other lane tests every row of every
+// gated cluster of its run in (visit, cluster, row) order up to and
+// including its first hit) of 46 fp32 operations over 67 TFLOP/s, against
+// the staged clusters and one ray block per run over 3.35 TB/s.
+// Design: runs are split as binned_nearest_kernel's are: a block walks a
+// span of BINNED_ANYHIT_SPAN visits, finds the run open at its first visit
+// with open_run and walks each run segment of the span, one lane per ray.
+// The merge is an OR, so the blocks of a run share each ray's flag in
+// occ_io itself, with no key and no finishing launch: before it stages a
+// gated cluster a block re-reads its packet's flags (volatile: another
+// block may have set them), a lane whose flag is 1 or whose window is empty
+// tests nothing, and when no lane is left the block skips the rest of its
+// run segment (__syncthreads_or); a lane that hits stores 1, the value
+// every writer writes.  The blocks of a long run are dispatched roughly in
+// index order, so later spans mostly start after earlier ones have set
+// their flags: the serial design's early exit survives the split.  The
+// tests counter counts the tests the blocks did, which depends on that
+// order.  Clusters are staged one at a time with two barriers each; the
+// test is mt_test_staged, which stops as soon as it must miss.  Of the
+// spans 8, 4, 2 and 1 timed on the H100, 1 was the fastest on both the
+// sweep and the binned cascade.
 __global__ void __launch_bounds__(BINNED_BP)
 binned_anyhit_kernel(Visits vs, Packets ry, const float* __restrict__ tri9,
-                     int n_super, int* __restrict__ occ_io,
+                     int n_super, int* occ_io,
                      unsigned long long* __restrict__ tests) {
     __shared__ float s_tri[9 * BINNED_C];
-    int v = blockIdx.x;
-    if (vs.first[v] == 0) return;  // the whole block: v is per block
-    const int p = vs.pkt[v];
-    if (p < 0 || p >= ry.n_packets) __trap();
-    const int i = p * BINNED_BP + threadIdx.x;
-    const float ox = ry.o[3 * i], oy = ry.o[3 * i + 1], oz = ry.o[3 * i + 2];
-    const float dx = ry.d[3 * i], dy = ry.d[3 * i + 1], dz = ry.d[3 * i + 2];
-    const float lo = ry.tmin[i];
-    const float cur = ry.tmax[i];  // the window's end while not occluded
-    int occ = occ_io[i];
-    unsigned long long done = 0;  // ray-triangle tests of this lane
-    for (; v < vs.n_visits; ++v) {
-        if (!__syncthreads_or(!occ && cur > lo)) break;
-        const int mask = vs.cmask[v];
+    __shared__ int s_near;
+    volatile int* flags = occ_io;
+    const int a = blockIdx.x * BINNED_ANYHIT_SPAN;
+    const int end = min(a + BINNED_ANYHIT_SPAN, vs.n_visits);
+    // block-uniform: the first visit of the run being walked, or -1
+    int run = vs.first[a] != 0 ? -1 : open_run(vs, a, &s_near);
+    int i = 0;
+    float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+    float lo = 0.f, hi = 0.f;
+    bool done = true;   // this lane has nothing left to test in its run
+    bool spent = true;  // block-uniform: no lane of the run is left
+    unsigned count = 0;  // ray-triangle tests of this lane
+    auto begin = [&](int p) {
+        if (p < 0 || p >= ry.n_packets) __trap();
+        i = p * BINNED_BP + threadIdx.x;
+        ox = ry.o[3 * i]; oy = ry.o[3 * i + 1]; oz = ry.o[3 * i + 2];
+        dx = ry.d[3 * i]; dy = ry.d[3 * i + 1]; dz = ry.d[3 * i + 2];
+        lo = ry.tmin[i];
+        hi = ry.tmax[i];
+        done = !(hi > lo);  // an empty window never hits
+        spent = false;
+    };
+    if (run >= 0) begin(vs.pkt[run]);
+    for (int v = a; v < end; ++v) {
+        if (vs.first[v] != 0) {
+            run = v;
+            begin(vs.pkt[v]);
+        }
+        const int mask = run >= 0 && !spent ? vs.cmask[v] : 0;
         if (mask != 0) {
             const int s = vs.sn[v];
             if (s < 0 || s >= n_super) __trap();
             for (int k = 0; k < BINNED_GROUP; ++k) {
                 if (!(mask & (1 << k))) continue;
-                __syncthreads();  // the previous cluster is no longer read
+                if (!done && flags[i] != 0) done = true;
+                // also the barrier after which the previous cluster is no
+                // longer read
+                if (!__syncthreads_or(!done)) {
+                    spent = true;
+                    break;
+                }
                 stage_cluster(tri9, s, k, s_tri);
                 __syncthreads();
-                for (int j = 0; j < BINNED_C && !occ; ++j) {
-                    const MtHit h = mt_test(s_tri + j, BINNED_C, ox, oy, oz,
-                                            dx, dy, dz);
-                    if (h.ok && h.t > lo && h.t < cur) occ = 1;
-                    ++done;
+                for (int j = 0; j < BINNED_C && !done; ++j) {
+                    const float* r = s_tri + j;
+                    ++count;
+                    mt_test_staged(r[0], r[BINNED_C], r[2 * BINNED_C],
+                                   r[3 * BINNED_C], r[4 * BINNED_C],
+                                   r[5 * BINNED_C], r[6 * BINNED_C],
+                                   r[7 * BINNED_C], r[8 * BINNED_C], ox, oy,
+                                   oz, dx, dy, dz, [&](float t, float, float) {
+                        if (t > lo && t < hi) {
+                            done = true;
+                            flags[i] = 1;
+                        }
+                    });
                 }
             }
         }
-        if (vs.last[v] != 0) break;
+        if (vs.last[v] != 0) run = -1;
     }
-    occ_io[i] = occ;
-    if (tests != nullptr) atomicAdd(tests, done);
+    if (tests != nullptr) {
+        count = __reduce_add_sync(0xFFFFFFFFu, count);
+        if ((threadIdx.x & 31) == 0 && count != 0)
+            atomicAdd(tests, (unsigned long long)count);
+    }
 }
 
 }  // namespace
@@ -253,6 +300,8 @@ binned_anyhit_kernel(Visits vs, Packets ry, const float* __restrict__ tri9,
 extern "C" {
 
 int spray_binned_span() { return BINNED_SPAN; }
+
+int spray_binned_anyhit_span() { return BINNED_ANYHIT_SPAN; }
 
 // Blocks of BINNED_BP threads that one SM keeps resident for
 // binned_nearest_kernel, by its registers and shared memory; -1 on an error.
@@ -291,8 +340,9 @@ int spray_binned_nearest(const int* pkt, const int* sn, const int* cmask,
     return (int)cudaGetLastError();
 }
 
-// tests: nullptr, or one u64 that receives the ray-triangle tests the
-// launch did (an occluded lane stops testing).
+// occ: the runs' input flags, updated in place.  tests: nullptr, or one u64
+// that receives the ray-triangle tests the launch did (a lane stops at its
+// flag; how many it did depends on the order the blocks ran in).
 int spray_binned_anyhit(const int* pkt, const int* sn, const int* cmask,
                         const int* first, const int* last, int n_visits,
                         const float* o, const float* d, const float* tmin,
@@ -301,7 +351,9 @@ int spray_binned_anyhit(const int* pkt, const int* sn, const int* cmask,
                         void* stream) {
     const Visits vs = {pkt, sn, cmask, first, last, n_visits};
     const Packets ry = {o, d, tmin, tmax, n_packets};
-    binned_anyhit_kernel<<<n_visits, BINNED_BP, 0, (cudaStream_t)stream>>>(
+    binned_anyhit_kernel<<<(n_visits + BINNED_ANYHIT_SPAN - 1)
+                               / BINNED_ANYHIT_SPAN,
+                           BINNED_BP, 0, (cudaStream_t)stream>>>(
         vs, ry, tri9, n_super, occ, tests);
     return (int)cudaGetLastError();
 }
