@@ -28,7 +28,10 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      WALK_PACKETS packets, full lists and one-entry lists, counts included;
      a constructed visit launch (a supernode and its copy in one run of
      more than 4 spans of the split kernel) == the plain version bit for
-     bit;
+     bit; BVHIntersector (a BVH walk in batched torch ops, no kernel of
+     its own) against the brute kernels and the jnp out-of-core backend
+     against the cluster backend on the same waves, with the wall time of
+     each, and default_intersector's "auto" choice on the card;
   3. path parity: a 64x64 PT+NEE frame through the kernels == the same frame
      through the plain versions (the PlainIntersector proxy), on the card,
      and so are the loss and gradients of a 64x64 training step; the frame
@@ -70,7 +73,11 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      phase 4's); constructed launches of the split any-hit kernel (a hit
      only in a long run's last span or only in its first, packets occluded
      at input, visits between a run's last and the next first) against the
-     plain version;
+     plain version; constructed launches of the brute any-hit kernel
+     (every ray of two blocks occluded by row 0, a hit only in the last
+     tile, every lane dead, rows with id < 0 between the hits) bit for
+     bit, with the expected flags and its own test count == the serial
+     order's;
      the same frame through routed="grid" (byte-identical image; the slot
      and one-entry any-hit kernels over every call of one frame against
      their bounds, sampled calls against the plain versions and the slot
@@ -79,7 +86,9 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      times of both); PallasBruteIntersector
      at 512x512, spp 4, bounces 2 on cornell_box() and on phase 2's wisp
      scene (frame time, the live lanes of every brute launch of one frame,
-     each launch against its bound, sampled ray blocks against the plain
+     each launch against its bound (the any-hit's counts the tests the
+     serial order needs, brute.anyhit_serial_tests, and the tests the
+     kernel began must equal it), sampled ray blocks against the plain
      versions, the image against the default intersector's).
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the kernels JSON (seven kernels); the
@@ -1120,6 +1129,72 @@ def phase2_alternates(torch, np, small, oracle, waves, dev):
                               plain(*calls[i]), fn(*calls[i]))
 
 
+def phase2_bvh(torch, small, waves, dev, smi):
+    """The modules that walk a BVH in batched torch ops (no kernel of their
+    own) on the card: BVHIntersector against the brute kernels (valid,
+    occlusion and prims equal, t within rtol 2e-4) and the jnp out-of-core
+    backend against the cluster backend on the same rays (committed hits
+    to the bar of compare_hits: their partitions and triangle tests differ;
+    occlusion equal); the wall time of each; and the selector's choice on
+    the card."""
+    from spray_tpu_torch.bvh.traverse import BVHIntersector
+    from spray_tpu_torch.kernels.brute import PallasBruteIntersector
+    from spray_tpu_torch.render import default_intersector
+    from spray_tpu_torch.sched.epochs import OOCIntersector
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    bvh, build_s = timed(lambda: BVHIntersector(small, device=dev))
+    ooc_j, jnp_s = timed(lambda: OOCIntersector(
+        small, n_domains=8, num_slots=4, backend="jnp", device=dev))
+    ooc_c = OOCIntersector(small, n_domains=8, num_slots=4, backend="cluster",
+                           device=dev)
+    pb = PallasBruteIntersector(small, device=dev)
+    print(f"phase2 bvh: BVHIntersector {tuple(bvh.bvh.child_node.shape)} nodes "
+          f"built in {build_s:.2f} s; jnp OOC partitioned in {jnp_s:.2f} s; "
+          f"card {smi}", flush=True)
+    for tag, kind, rays in waves:
+        wo, wd, wmin, wmax = (x.contiguous() for x in rays)
+        if kind == "nearest":
+            ref = pb.intersect(wo, wd, wmin, wmax)
+            got, bvh_s = timed(lambda: bvh.intersect(wo, wd, wmin, wmax))
+            compare_hits(f"phase2 {tag} BVHIntersector~brute kernels", ref, got)
+            # one triangle test in both: a prim differs only on an exact
+            # tie, where the brute takes the lowest row and the walk its own
+            differ = ref.prim != got.prim
+            check(f"phase2 {tag} BVHIntersector~brute kernels prims equal but "
+                  "on exact ties", not bool((differ & (ref.t != got.t)).any()),
+                  f"({int(differ.sum())} differ, all at equal t)")
+            hc, c_s = timed(lambda: ooc_c.intersect(wo, wd, wmin, wmax))
+            hj, j_s = timed(lambda: ooc_j.intersect(wo, wd, wmin, wmax))
+            compare_hits(f"phase2 {tag} OOC jnp~cluster committed hits", hc, hj)
+            n_diff = int((hc.prim != hj.prim).sum())
+        else:
+            ref = pb.occluded(wo, wd, wmax)
+            got, bvh_s = timed(lambda: bvh.occluded(wo, wd, wmax))
+            check(f"phase2 {tag} BVHIntersector~brute kernels occlusion equal",
+                  bool((ref == got).all()), f"({int((ref != got).sum())} differ)")
+            hc, c_s = timed(lambda: ooc_c.occluded(wo, wd, wmax))
+            hj, j_s = timed(lambda: ooc_j.occluded(wo, wd, wmax))
+            n_diff = int((hc != hj).sum())
+            check(f"phase2 {tag} OOC jnp~cluster occlusion equal", n_diff == 0,
+                  f"({n_diff} differ)")
+        print(f"phase2 {tag} {kind} ({wo.shape[0]} lanes): BVHIntersector "
+              f"{bvh_s * 1e3:.1f} ms; OOC jnp {j_s * 1e3:.1f} ms vs cluster "
+              f"{c_s * 1e3:.1f} ms ({n_diff} lanes differ); card {smi}",
+              flush=True)
+    print(f"phase2 OOC jnp: {ooc_j.stats}; cluster: {ooc_c.stats}", flush=True)
+    auto = type(default_intersector(small, device=dev)).__name__
+    check("phase2 default_intersector(prefer='auto') on the card is the "
+          "multi-domain cluster intersector",
+          auto == "MultiDomainClusterIntersector", f"({auto})")
+
+
 def check_split_tie(torch, np, small, dev):
     """One constructed launch of binned_nearest_kernel == its plain version
     bit for bit: tri9 gets a copy of supernode 0, and packet 0 visits the
@@ -1370,7 +1445,9 @@ def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
 def brute_kernel_stats(torch, np, tag, isect, calls, smi):
     """One frame's brute launches: every call timed against its bound, and
     BRUTE_SAMPLE_BLOCKS blocks of 256 rays of each held against the plain
-    version.  Returns stats by kind."""
+    version.  The any-hit's bound counts the tests the serial order needs
+    (brute.anyhit_serial_tests); the tests the kernel began (its counter)
+    must equal them on every call.  Returns stats by kind."""
     from spray_tpu_torch.kernels import brute
 
     dev = isect.tri9.device
@@ -1378,35 +1455,44 @@ def brute_kernel_stats(torch, np, tag, isect, calls, smi):
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     keys = ("ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms", "s_ops_ms",
             "s_bytes_ms", "s_err")
-    st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "s_rays": 0}
+    st = {k: {**dict.fromkeys(keys, 0.0), "launches": 0, "s_rays": 0,
+              "serial_tests": 0, "kernel_tests": 0}
           for k in ("nearest", "anyhit")}
 
     def parts(kind, rays):
         """Bound of one call: nearest tests every live ray against every
-        triangle, any-hit the tests the kernel counted; bytes: the table,
-        the rays, the outputs."""
+        triangle, any-hit the tests the serial order needs; bytes: the
+        table, the rays, the outputs."""
         if kind == "nearest":
             tests = int((rays[3] > rays[2]).sum()) * n_tris
         else:
-            counter.zero_()
-            brute.brute_anyhit(isect.tri9, isect.ids, *rays, counter=counter)
-            tests = int(counter)
+            tests = int(brute.anyhit_serial_tests(isect.tri9, isect.ids,
+                                                  *rays).sum())
         n = rays[0].shape[0]
         nbytes = n_tris * 40 + n * (32 + (16 if kind == "nearest" else 4))
-        return tests * MT_OPS / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+        return tests, tests * MT_OPS / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
 
     for ci, (kind, *rays) in enumerate(calls):
         rays = tuple(x.contiguous() for x in rays)
         print(f"{tag} call {ci} {kind}: {rays[0].shape[0]} lanes, "
               f"{int((rays[3] > rays[2]).sum())} live", flush=True)
-        # the nearest kernel with the table the intersector packed once
-        fn = (functools.partial(brute.brute_nearest, tri12=isect.tri12)
-              if kind == "nearest" else brute.brute_anyhit)
+        # the kernels with the table the intersector packed once
+        fn = functools.partial(brute.brute_nearest if kind == "nearest"
+                               else brute.brute_anyhit, tri12=isect.tri12)
         plain = (brute.brute_nearest_reference if kind == "nearest"
                  else brute.brute_anyhit_reference)
         s = st[kind]
         _, ms = timed_once(torch, lambda: fn(isect.tri9, isect.ids, *rays))
-        ops_ms, bytes_ms = parts(kind, rays)
+        tests, ops_ms, bytes_ms = parts(kind, rays)
+        if kind == "anyhit":
+            counter.zero_()
+            fn(isect.tri9, isect.ids, *rays, counter=counter)
+            own = int(counter)
+            check(f"{tag} call {ci} brute_anyhit_kernel began the tests the "
+                  "serial order needs", own == tests,
+                  f"({own} vs {tests})")
+            s["serial_tests"] += tests
+            s["kernel_tests"] += own
         s["ms"] += ms
         s["ops_ms"] += ops_ms
         s["bytes_ms"] += bytes_ms
@@ -1421,7 +1507,7 @@ def brute_kernel_stats(torch, np, tag, isect, calls, smi):
                                    lambda: plain(isect.tri9, isect.ids, *sub))
         s["s_err"] = max(s["s_err"], compare_exact(
             f"{tag} call {ci} brute_{kind}_kernel on {idx.numel()} rays", ref, got))
-        ops_ms, bytes_ms = parts(kind, sub)
+        _, ops_ms, bytes_ms = parts(kind, sub)
         s["s_ms"] += cuda_ms(torch, lambda: fn(isect.tri9, isect.ids, *sub))
         s["s_plain_ms"] += plain_ms
         s["s_ops_ms"] += ops_ms
@@ -1431,12 +1517,79 @@ def brute_kernel_stats(torch, np, tag, isect, calls, smi):
         fb, fby = bound_of(s["ops_ms"], s["bytes_ms"])
         sb, sby = bound_of(s["s_ops_ms"], s["s_bytes_ms"])
         s.update(frame_bound_ms=fb, frame_bound_by=fby, bound_ms=sb, bound_by=sby)
+        own = (f"; tests the serial order needs {s['serial_tests']}, the "
+               f"kernel began {s['kernel_tests']} (ratio "
+               f"{s['kernel_tests'] / max(s['serial_tests'], 1):.4f})"
+               if kind == "anyhit" else "")
         print(f"{tag} brute_{kind}_kernel: one frame {s['ms']:.3f} ms in "
               f"{s['launches']} launches against {n_tris} tris, bound {fb:.4f} ms "
-              f"({fby}); samples ({s['s_rays']} rays) {s['s_ms']:.3f} ms vs plain "
-              f"{s['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max abs err "
-              f"{s['s_err']:.3g}; card {smi}", flush=True)
+              f"({fby}){own}; samples ({s['s_rays']} rays) {s['s_ms']:.3f} ms vs "
+              f"plain {s['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max "
+              f"abs err {s['s_err']:.3g}; card {smi}", flush=True)
     return st
+
+
+def check_brute_anyhit(torch, np, dev):
+    """Constructed launches of brute_anyhit_kernel, each == its plain
+    version bit for bit, with the expected flags and the kernel's own test
+    count == brute.anyhit_serial_tests: every ray of two blocks occluded by
+    row 0 (the block leaves after one tile); a hit only in the table's last
+    tile; every lane dead (empty, inverted and NaN windows); rows with
+    id < 0 in front of every ray between the hits.  The table: 3 full tiles
+    and 17 rows, filler triangles far off the rays' paths; the rays look
+    down -z from z = 3 near (0, 0)."""
+    from spray_tpu_torch.kernels import brute
+
+    n_tris, n = 3 * 256 + 17, 256
+    rs = np.random.RandomState(17)
+    filler = np.zeros((n_tris, 9), np.float32)
+    filler[:, 0:3] = rs.uniform(30.0, 40.0, (n_tris, 3))
+    filler[:, 3:9] = rs.uniform(-1.0, 1.0, (n_tris, 6))
+    cover = np.float32([-2.0, -2.0, 0.0, 8.0, 0.0, 0.0, 0.0, 8.0, 0.0])
+    o = np.concatenate([rs.uniform(-0.5, 0.5, (n, 2)), np.full((n, 1), 3.0)],
+                       axis=1).astype(np.float32)
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (n, 1))
+    zeros, inf = np.zeros(n, np.float32), np.full(n, np.inf, np.float32)
+    dead_lo, dead_hi = zeros.copy(), zeros.copy()
+    dead_hi[1::4] = -1.0
+    dead_lo[2::4] = np.nan
+    dead_hi[3::4] = np.nan
+
+    def table(rows, neg=()):
+        tri9, ids = filler.copy(), np.arange(n_tris, dtype=np.int32)
+        for r in rows:
+            tri9[r] = cover
+        for r in neg:
+            tri9[r] = cover
+            tri9[r, 2] = 1.0  # nearer than the real rows
+            ids[r] = -1
+        return tri9, ids
+
+    half = np.arange(n) < n // 2
+    neg = [0, 1, 255, 256, 600, n_tris - 1]
+    cases = [  # (name, table, tmin, tmax, expected flags)
+        ("every ray occluded by row 0", table([0]), zeros, inf, np.ones(n)),
+        ("a hit only in the last tile", table([n_tris - 1]), zeros, inf,
+         np.ones(n)),
+        ("every lane dead", table([0, 7]), dead_lo, dead_hi, np.zeros(n)),
+        ("rows with id < 0 between the hits", table([700], neg), zeros,
+         np.where(half, np.inf, 2.5).astype(np.float32), half),
+    ]
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    for name, (tri9, ids), lo, hi, want in cases:
+        args = [torch.as_tensor(x, device=dev) for x in (tri9, ids, o, d, lo, hi)]
+        tri12 = brute.pack_table(args[0], args[1])
+        counter.zero_()
+        got = brute.brute_anyhit(*args, tri12=tri12, counter=counter)
+        torch.cuda.synchronize()
+        ref = brute.brute_anyhit_reference(*args)
+        compare_exact(f"phase7 constructed brute_anyhit_kernel launch, {name}",
+                      ref, got)
+        check(f"phase7 constructed brute launch, {name}: the expected flags",
+              bool((got.cpu().numpy() == want).all()), f"({int(want.sum())} of {n})")
+        serial = int(brute.anyhit_serial_tests(*args).sum())
+        check(f"phase7 constructed brute launch, {name}: kernel tests == "
+              "serial tests", int(counter) == serial, f"({int(counter)} vs {serial})")
 
 
 def phase7_brute(torch, np, tag, scene, cam, cfg, dev, smi):
@@ -1644,6 +1797,7 @@ def main():
                                                           tdead.clamp(max=1e30)))],
                       dev)
     check_split_tie(torch, np, small, dev)
+    phase2_bvh(torch, small, waves, dev, smi)
 
     phase_done("phase2 (kernel parity)")
 
@@ -1777,6 +1931,7 @@ def main():
             phase7_visit_path(torch, np, prefer, scene, cam, cfg, img, dev, smi))
         phase_done(f"phase7 ({prefer})")
     check_split_anyhit(torch, np, dev)
+    check_brute_anyhit(torch, np, dev)
     routed, grid_k, routed_launches = phase7_routed(
         torch, np, scene, pages, cam, cfg, isect, img, shadows, dev, smi)
     del pages, shadows
@@ -1899,8 +2054,13 @@ def main():
             f"{BRUTE_SAMPLE_BLOCKS} blocks of 256 rays of each call of one "
             f"frame on {brute_frames['wisp41k']['tris']} tris ({w['s_rays']} rays)",
             {"max_abs_err": max(w["s_err"], c["s_err"]),
-             "design": ("live-ray queue, a ray a thread, staged test, 16-byte "
-                        "table rows" if kind == "nearest" else "thread_per_ray"),
+             "design": "live-ray queue, a ray a thread, staged test, 16-byte "
+                       "table rows" + ("" if kind == "nearest" else
+                                       ", stops at the first hit"),
+             **({} if kind == "nearest" else {
+                 "bound_counts": "tests the serial order needs",
+                 "frame_serial_tests": w["serial_tests"],
+                 "frame_kernel_tests": w["kernel_tests"]}),
              "cornell": {"max_abs_err": c["s_err"], "ms": c["s_ms"],
                          "plain_ms": c["s_plain_ms"], "bound_ms": c["bound_ms"],
                          "bound_by": c["bound_by"], "frame_ms": c["ms"],

@@ -4,16 +4,21 @@ so both packages can run on identical scenes, cameras and cluster pages.
 Cluster pages go through
 ``spray_tpu_torch.kernels.multidomain.MultiDomainClusterIntersector.from_pages``,
 a binned build through ``binned_arrays`` and
-``BinnedIntersector.from_arrays`` / ``SweepIntersector.from_arrays``, and a
+``BinnedIntersector.from_arrays`` / ``SweepIntersector.from_arrays``, a
 brute triangle table through ``brute_arrays`` and
-``PallasBruteIntersector.from_arrays``.
+``PallasBruteIntersector.from_arrays``, and a partitioned domain set through
+``domain_set_from_numpy`` (then ``OOCIntersector(dset=...)`` or
+``MultiDomainIntersector(dset=...)``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from .core.types import Camera, Scene
+from .domains.partition import DomainSet
 from .kernels.binned import BinnedScene
 
 
@@ -52,3 +57,11 @@ def brute_arrays(src):
     """(tri9 (T, 9) f32, ids (T,) i32) as numpy from a brute-kernel
     intersector of either package."""
     return np.array(src.tri9, np.float32), np.array(src.ids, np.int32)
+
+
+def domain_set_from_numpy(src):
+    """The port's `DomainSet` from any object with a DomainSet's fields (a
+    reference `DomainSet`, say), its arrays copied as numpy."""
+    arrays = {f.name: np.array(getattr(src, f.name))
+              for f in dataclasses.fields(DomainSet) if f.name != "leaf_size"}
+    return DomainSet(**arrays, leaf_size=int(src.leaf_size))

@@ -48,8 +48,8 @@ _SIGNATURES = {
     # tri12, num_tris, o, d, tmin, tmax, n, out_t, out_prim, out_u, out_v,
     # stream
     "spray_brute_nearest": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-    # tri9, ids, num_tris, o, d, tmin, tmax, n, out_occ, tests, stream
-    "spray_brute_anyhit": [_P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    # tri12, num_tris, o, d, tmin, tmax, n, out_occ, tests, stream
+    "spray_brute_anyhit": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     # pkt, sn, cmask, first, last, n_visits, o, d, tmin, n_packets, tri9,
     # n_super, best_t, best_code (read and updated in place), keys
     # (scratch), stream

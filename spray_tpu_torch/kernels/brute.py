@@ -4,10 +4,10 @@ hand-written CUDA kernels, with their plain PyTorch versions.
 Counterpart of ``spray_tpu/kernels/brute.py``: the fast path for small
 scenes, where a BVH would be overhead.  The TPU kernels hold an (8, 128) ray
 tile in registers and stream the triangle table from SMEM; the CUDA kernels
-(``csrc/brute.cu``) stage the table through shared memory: the nearest
-kernel queues a block's live rays and gives each thread several of them
-against the table packed as 16-byte vectors (`pack_table`), the any-hit
-kernel gives each ray a thread.  The contract is the reference's:
+(``csrc/brute.cu``) queue a block's live rays, one a thread, and stage the
+table through shared memory packed as 16-byte vectors (`pack_table`); the
+any-hit kernel stops a ray at its first hit and a block once all its rays
+are occluded.  The contract is the reference's:
 
   - nearest: triangles in row order with a strict ``t < best`` and
     ``t >= tmin``, so the lowest row wins an exact tie; rows with id < 0
@@ -98,13 +98,39 @@ def brute_anyhit_reference(tri9, ids, o, d, tmin, tmax):
     return occ
 
 
+def anyhit_serial_tests(tri9, ids, o, d, tmin, tmax):
+    """Ray-triangle tests, per ray ((N,) int64), that the serial order of
+    the any-hit needs: the bound of `brute_anyhit_kernel` counts these.  A
+    dead lane (!(tmax > tmin), NaN included) needs none; any other ray
+    tests every row with id >= 0 up to and including the first that
+    occludes it (tmin < t < tmax), or all of them if none does."""
+    tests = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    live = torch.nonzero(tmax > tmin).view(-1)
+    if tri9.shape[0] == 0 or live.numel() == 0:
+        return tests
+    real = ids >= 0
+    upto = torch.cumsum(real.to(torch.int64), dim=0)  # real rows up to each
+    lo, hi = tmin[live], tmax[live]
+    for sl, t, _, _, ok in _mt_chunks(tri9, o[live], d[live]):
+        hit = ok & (t > lo[sl, None]) & (t < hi[sl, None]) & real
+        first = hit.to(torch.uint8).argmax(dim=1)  # the first True
+        tests[live[sl]] = torch.where(hit.any(dim=1), upto[first], upto[-1])
+    return tests
+
+
 def pack_table(tri9, ids):
-    """The (T, 12) f32 table `brute_nearest_kernel` reads: rows
-    `[v0 0 | e1 0 | e2 id]`, three 16-byte vectors, the id's int32 bits in
-    the twelfth word."""
+    """The (T, 12) f32 table the kernels read: rows `[v0 0 | e1 0 | e2 id]`,
+    three 16-byte vectors, the id's int32 bits in the twelfth word."""
     zero = tri9.new_zeros(tri9.shape[0], 1)
     return torch.cat([tri9[:, 0:3], zero, tri9[:, 3:6], zero, tri9[:, 6:9],
                       ids.view(torch.float32)[:, None]], dim=1)
+
+
+def _check_tri12(tri9, tri12, device):
+    if tri12 is not None:
+        _build.check_tensors(device, [("tri12", tri12, torch.float32, 2)])
+        if tri12.shape != (tri9.shape[0], 12):
+            raise ValueError("tri12: want (T, 12), pack_table(tri9, ids)")
 
 
 def brute_nearest(tri9, ids, o, d, tmin, tmax, tri12=None):
@@ -114,10 +140,7 @@ def brute_nearest(tri9, ids, o, d, tmin, tmax, tri12=None):
     tmax (N,) f32; tri12: `pack_table(tri9, ids)`, if the caller keeps it
     (it is packed here otherwise).  Returns (t, prim, u, v), (N,) each."""
     _check(tri9, ids, o, d, tmin, tmax)
-    if tri12 is not None:
-        _build.check_tensors(o.device, [("tri12", tri12, torch.float32, 2)])
-        if tri12.shape != (tri9.shape[0], 12):
-            raise ValueError("tri12: want (T, 12), pack_table(tri9, ids)")
+    _check_tri12(tri9, tri12, o.device)
     if o.device.type == "cpu":
         return brute_nearest_reference(tri9, ids, o, d, tmin, tmax)
     n = o.shape[0]
@@ -135,19 +158,22 @@ def brute_nearest(tri9, ids, o, d, tmin, tmax, tri12=None):
     return t, prim, u, v
 
 
-def brute_anyhit(tri9, ids, o, d, tmin, tmax, counter=None):
+def brute_anyhit(tri9, ids, o, d, tmin, tmax, tri12=None, counter=None):
     """Occlusion of every ray in (tmin, tmax) against every row of the
     table; same arguments as `brute_nearest`; returns occ (N,) i32.
     counter: optional (1,) int64 CUDA tensor that receives the
-    ray-triangle tests done (a ray stops at its first hit)."""
+    ray-triangle tests begun (a ray stops at its first hit)."""
     _check(tri9, ids, o, d, tmin, tmax)
+    _check_tri12(tri9, tri12, o.device)
     if o.device.type == "cpu":
         return brute_anyhit_reference(tri9, ids, o, d, tmin, tmax)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.int32, device=o.device)
     if n:
+        if tri12 is None:
+            tri12 = pack_table(tri9, ids)
         _build.launch("brute", "spray_brute_anyhit", o.device,
-                      tri9.data_ptr(), ids.data_ptr(), tri9.shape[0],
+                      tri12.data_ptr(), tri9.shape[0],
                       o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
                       tmax.data_ptr(), n, occ.data_ptr(),
                       _build.check_counter(counter, o.device))
@@ -192,7 +218,7 @@ class PallasBruteIntersector:
                                     device=device)
         self.ids = torch.as_tensor(np.ascontiguousarray(ids, np.int32),
                                    device=device)
-        self.tri12 = pack_table(self.tri9, self.ids)  # the nearest kernel's
+        self.tri12 = pack_table(self.tri9, self.ids)  # the kernels' table
 
     def intersect(self, o, d, tmin, tmax):
         t, prim, u, v = brute_nearest(
@@ -205,4 +231,4 @@ class PallasBruteIntersector:
     def occluded(self, o, d, tmax):
         return brute_anyhit(
             self.tri9, self.ids, o.contiguous(), d.contiguous(),
-            torch.zeros_like(tmax), tmax.contiguous()) != 0
+            torch.zeros_like(tmax), tmax.contiguous(), tri12=self.tri12) != 0

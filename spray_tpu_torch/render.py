@@ -1,9 +1,10 @@
 """Public API: render / make_pipeline (counterpart of ``spray_tpu/render.py``).
 
 `default_intersector` is the reference's selector: brute force for tiny
-scenes, else the multi-domain cluster intersector, with the binned, sweep
-and brute-kernel intersectors on request.  Their traversal runs in the
-hand-written CUDA kernels on the card.
+scenes, else the multi-domain cluster intersector on the card and the
+stackful BVH walk on the CPU, with the binned, sweep and brute-kernel
+intersectors on request.  Their traversal runs in the hand-written CUDA
+kernels on the card.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bvh.traverse import BVHIntersector
 from .core.config import RenderConfig
 from .core.device import resolve_device
 from .diff import grads_of, make_diff_render_fn
@@ -30,10 +32,10 @@ def default_intersector(scene, prefer="auto", device=None):
     "brute", and "auto" at <= 256 triangles: the torch `BruteIntersector`.
     "binned": `BinnedIntersector` (for coherent primary-ray workloads).
     "sweep": `SweepIntersector`.
-    "pallas", "multidomain", and "auto" otherwise: the multi-domain cluster
-    intersector over the CUDA traversal kernels.  The reference sends
-    "auto" off the TPU to its stackful `BVHIntersector`; the port has no
-    `bvh/` yet, so "auto" goes to the multi-domain intersector until then.
+    "pallas", "multidomain", and "auto" on the card: the multi-domain
+    cluster intersector over the CUDA traversal kernels.  "auto" on the CPU:
+    the stackful `BVHIntersector`, as the reference off the TPU (the card
+    is the port's analog of the TPU).
     """
     if prefer not in PREFER:
         raise ValueError(f"prefer: want one of {PREFER}, got {prefer!r}")
@@ -48,6 +50,9 @@ def default_intersector(scene, prefer="auto", device=None):
         from .kernels.sweep import SweepIntersector  # noqa: PLC0415
 
         return SweepIntersector(scene, device=device)
+    device = resolve_device(device)
+    if prefer == "auto" and device.type != "cuda":
+        return BVHIntersector(scene, device=device)
     return MultiDomainClusterIntersector(scene, device=device)
 
 

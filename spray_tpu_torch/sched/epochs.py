@@ -1,4 +1,4 @@
-"""Epoch-based speculative ray scheduler, cluster backend (counterpart of
+"""Epoch-based speculative ray scheduler (counterpart of
 ``spray_tpu/sched/epochs.py``).
 
 Per epoch: count each domain's ray queue, schedule the K largest queues,
@@ -14,13 +14,15 @@ closer domain has been processed.  As in the reference:
   - commit is implicit: a ray is done when `needed` is empty, and its best
     (t, prim) then satisfies the commit invariant.
 
-Each slot's trace is one launch of the CUDA `nearest_slot` kernel (or of
-`anyhit` with a one-entry domain list for occlusion rays) on the slot's
-pages.  The reference's device-side `lax.while_loop` over epochs becomes a
-Python loop over device tensors that reads its `more_work` flag once per
-epoch: one host sync per epoch, where the reference pays none.  The jnp
-backend (`epoch_step`, `partition_scene` domain sets, `bvh/traverse.py`) is
-not ported.
+Two backends, as in the reference.  The cluster backend: each slot's
+trace is one launch of the CUDA `nearest_slot` kernel (or of `anyhit` with
+a one-entry domain list for occlusion rays) on the slot's cluster pages;
+the reference's device-side `lax.while_loop` over epochs becomes a Python
+loop over device tensors that reads its `more_work` flag once per epoch:
+one host sync per epoch, where the reference pays none.  The jnp backend
+(the reference's name, kept so that the two APIs match): each slot's
+trace walks the domain's BVH (`bvh/traverse.py`, a `partition_scene`
+domain set), with the host-driven per-epoch loop (`epoch_step`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from ..bvh.traverse import DeviceBVH
 from ..core.device import resolve_device
 from ..core.types import Hits
 from ..kernels import traverse
@@ -38,7 +41,7 @@ from ..kernels.common import pad_rays
 from ..kernels.traverse import PACKET
 from ..kernels.multidomain import _live_partition, build_cluster_domains
 from ..residency.manager import ResidencyManager
-from .multidomain import DeviceDomainSet, domain_entries
+from .multidomain import BVH_FIELDS, DeviceDomainSet, domain_entries, trace_domain
 
 PROBE_MB_S = 50.0  # host->device rate below which lookahead turns itself off
 
@@ -52,6 +55,8 @@ class EpochState:
     tmin: torch.Tensor
     best_t: torch.Tensor  # (N,) current nearest (the ray's tmax while no hit)
     best_prim: torch.Tensor  # (N,) global tri id or -1
+    best_u: torch.Tensor  # (N,) barycentrics of the best hit (jnp backend)
+    best_v: torch.Tensor
     found: torch.Tensor  # (N,) bool
     entry_t: torch.Tensor  # (N, D) domain entry distance (+inf no overlap)
     processed: torch.Tensor  # (N, D) bool
@@ -82,6 +87,7 @@ def init_state(dset, o, d, tmin, tmax, occ_mode=False):
     return EpochState(
         o=o, d=d, tmin=tmin, best_t=tmax,
         best_prim=torch.full((n,), -1, dtype=torch.int32, device=o.device),
+        best_u=torch.zeros_like(tmax), best_v=torch.zeros_like(tmax),
         found=torch.zeros(n, dtype=torch.bool, device=o.device),
         entry_t=entry, processed=torch.zeros_like(entry, dtype=torch.bool),
         occ_mode=bool(occ_mode),
@@ -194,6 +200,39 @@ def _zero_counts(state):
     return z, z
 
 
+def epoch_step(state, slots, speculate, leaf_size):
+    """Trace one epoch over the resident slots [(domain id, BVH pages), ...]
+    by walking each domain's BVH (the jnp backend).  Occlusion rays take the
+    nearest walk too, as in the reference.  Returns (state, traced,
+    speculated) with the counts as device tensors."""
+    need = needed_mask(state)
+    nearest, has_need, _ = _nearest_needed(need, state.entry_t)
+    traced, spec = _zero_counts(state)
+    bt, bp, bu, bv, found = (state.best_t, state.best_prim, state.best_u,
+                             state.best_v, state.found)
+    processed = state.processed.clone()
+    for d_id, slot in slots:
+        at_nearest = (nearest == d_id) & has_need
+        active = need[:, d_id]
+        if not speculate:
+            active = active & at_nearest
+        traced = traced + active.sum()
+        spec = spec + (active & ~at_nearest).sum()
+        dbvh = DeviceBVH(**{k: slot[k] for k in BVH_FIELDS}, leaf_size=leaf_size)
+        window = torch.where(active, bt, torch.zeros_like(bt))
+        t, p, u, v, f = trace_domain(dbvh, state.o, state.d, state.tmin, window)
+        upd = f & (t < bt) & active
+        bt = torch.where(upd, t, bt)
+        bp = torch.where(upd, p, bp)
+        bu = torch.where(upd, u, bu)
+        bv = torch.where(upd, v, bv)
+        found = found | (f & active)
+        processed[:, d_id] |= active
+    state = dataclasses.replace(state, best_t=bt, best_prim=bp, best_u=bu,
+                                best_v=bv, found=found, processed=processed)
+    return state, traced, spec
+
+
 def epoch_step_cluster(state, slots, speculate, depth):
     """Trace one epoch over the resident slots [(domain id, pages), ...]
     with the CUDA slot kernel.  Occlusion rays use the nearest kernel with
@@ -264,40 +303,64 @@ class OOCIntersector:
     Same interface as every other intersector; internally runs the epoch
     loop with at most `num_slots` domains resident at a time.  Host-driven:
     scheduling and residency run on the host between launches, so the
-    integrator drives it from its eager wavefront loop."""
+    integrator drives it from its eager wavefront loop.  backend "cluster"
+    traces cluster pages with the CUDA kernels, "jnp" walks the BVHs of a
+    domain set (`dset`, or `partition_scene` of the scene); "auto" is the
+    cluster backend on the card unless a `dset` is given, else "jnp"."""
 
     host_driven = True
 
-    def __init__(self, scene, n_domains=64, num_slots=8, speculate=True,
-                 max_epochs=256, lookahead=True, backend="cluster",
-                 device_batched=None, pages=None, device=None):
-        if backend != "cluster":
-            raise NotImplementedError(
-                f"backend {backend!r}: only the cluster backend is ported "
-                "(the jnp backend waits for the port of bvh/)")
+    def __init__(self, scene=None, n_domains=64, num_slots=8, dset=None,
+                 leaf_size=16, branching=8, speculate=True, max_epochs=256,
+                 lookahead=True, backend="auto", device_batched=None,
+                 pages=None, device=None):
         device = resolve_device(device)
+        if backend == "auto":  # the card is the port's analog of the TPU
+            backend = ("cluster" if dset is None and device.type == "cuda"
+                       else "jnp")
+        if backend not in ("cluster", "jnp"):
+            raise ValueError(f"backend: want 'auto', 'cluster' or 'jnp', got "
+                             f"{backend!r}")
         self.device = device
         self.backend = backend
-        # device_batched=False keeps the host-driven per-epoch loop (the
-        # tests' semantics oracle)
-        self.device_batched = True if device_batched is None else device_batched
+        # the cluster backend runs epochs in batches between residency
+        # changes; device_batched=False keeps the host-driven per-epoch loop
+        # (the tests' semantics oracle), the jnp backend's only loop
+        self.device_batched = (backend == "cluster"
+                               and (device_batched is None or device_batched))
         # speculate: False = strict front-to-back; True = unbounded; int
         # k >= 1 = bounded to each ray's k nearest needed domains per epoch
         self.spec_bound = (speculate if isinstance(speculate, int)
                            and not isinstance(speculate, bool) else None)
         self.speculate = bool(speculate)
         self.max_epochs = max_epochs
-        if pages is None:  # else the numpy dict of build_cluster_domains
-            pages = build_cluster_domains(scene, n_domains)
-        aabb = torch.as_tensor(pages["aabb"], device=device)
-        self.dset = DeviceDomainSet(aabb_lo=aabb[:, 0:3].contiguous(),
-                                    aabb_hi=aabb[:, 3:6].contiguous())
-        self.depth = traverse.tree_depth(pages["meta"])
-        self.v0, self.e1, self.e2 = traverse.tri_soa_from_scene(scene, device)
+        if backend == "cluster":
+            if pages is None:  # else the numpy dict of build_cluster_domains
+                pages = build_cluster_domains(scene, n_domains)
+            aabb = torch.as_tensor(pages["aabb"], device=device)
+            self.dset = DeviceDomainSet(aabb_lo=aabb[:, 0:3].contiguous(),
+                                        aabb_hi=aabb[:, 3:6].contiguous())
+            self.depth = traverse.tree_depth(pages["meta"])
+            self.v0, self.e1, self.e2 = traverse.tri_soa_from_scene(scene,
+                                                                    device)
+            host = {k: np.ascontiguousarray(pages[k], dt)
+                    for k, dt in (("bounds", np.float32), ("meta", np.int32),
+                                  ("w", np.float32), ("tri_ids", np.int64))}
+        else:
+            if dset is None:
+                from ..domains.partition import partition_scene  # noqa: PLC0415
+
+                dset = partition_scene(scene, n_domains, leaf_size=leaf_size,
+                                       branching=branching)
+            self.dset = DeviceDomainSet(
+                aabb_lo=torch.as_tensor(dset.aabb_lo, device=device),
+                aabb_hi=torch.as_tensor(dset.aabb_hi, device=device),
+                leaf_size=dset.leaf_size)
+            self.leaf_size = dset.leaf_size
+            host = {k: getattr(dset, k) for k in BVH_FIELDS}
+        self.host_dset = dset
         # host pages: pinned once on the card's host, sliced per domain
-        host = {k: torch.as_tensor(np.ascontiguousarray(pages[k], dt))
-                for k, dt in (("bounds", np.float32), ("meta", np.int32),
-                              ("w", np.float32), ("tri_ids", np.int64))}
+        host = {k: torch.as_tensor(v) for k, v in host.items()}
         if device.type == "cuda":
             host = {k: v.pin_memory() for k, v in host.items()}
         self._host_pages = host
@@ -444,8 +507,12 @@ class OOCIntersector:
                 nxt = [int(d) for d in order
                        if counts[d] > 0 and int(d) not in ids]
                 self.residency.prefetch(nxt[:self.reserve], pinned=sched)
-            state, traced, spec = epoch_step_cluster(
-                state, slots, self.speculate, self.depth)
+            if self.backend == "cluster":
+                state, traced, spec = epoch_step_cluster(
+                    state, slots, self.speculate, self.depth)
+            else:
+                state, traced, spec = epoch_step(state, slots, self.speculate,
+                                                 self.leaf_size)
             traced, spec = torch.stack([traced, spec]).tolist()
             self._absorb(1, traced, spec, {
                 "epoch": self.stats.epochs + 1,
@@ -470,6 +537,11 @@ class OOCIntersector:
         state = self._run_epochs(state)
         self.stats.committed += int(state.found.sum())
         best_prim = state.best_prim[inv]
+        if self.backend == "jnp":
+            found = state.found[inv]
+            return Hits(t=torch.where(found, state.best_t[inv], tmax),
+                        prim=best_prim, u=state.best_u[inv],
+                        v=state.best_v[inv], valid=found)
         # the kernels return (t, prim) only; (t, u, v) are recomputed
         # against the committed triangle, as the other intersectors do
         t, u, v, valid = traverse.attrs_for_prims(

@@ -1,10 +1,14 @@
-"""The domain set's AABB view and the dense entry distances of the epoch
-scheduler (counterpart of the first half of ``spray_tpu/sched/multidomain.py``).
+"""Single-device multi-domain tracing over per-domain BVHs, and the dense
+entry distances of the epoch scheduler (counterpart of
+``spray_tpu/sched/multidomain.py``).
 
-The out-of-core cluster backend keeps only the domain boxes resident; each
-domain's pages stream through the residency slots.  The reference's vmapped
-jnp-BVH `trace_domain` and its `MultiDomainIntersector` belong to the jnp
-backend, which the port does not carry yet.
+With every domain resident, tracing a wavefront against each domain in turn
+and keeping the nearest hit is speculation with a trivially correct commit:
+every closer domain has been processed once the loop ends.  The loop
+carries best-t, so later domains are culled by the traversal's
+[tmin, best_t) window.  The out-of-core scheduler (`sched/epochs.py`)
+builds on `domain_entries` and `trace_domain`; its cluster backend keeps
+only the domain boxes of `DeviceDomainSet` resident.
 """
 
 from __future__ import annotations
@@ -13,19 +17,52 @@ import dataclasses
 
 import torch
 
+from ..bvh.traverse import DeviceBVH, traverse
 from ..core import geom
+from ..core.device import resolve_device
+from ..core.types import Hits
+
+BVH_FIELDS = ("child_lo", "child_hi", "child_node", "child_count", "v0", "e1",
+              "e2", "orig_id")
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceDomainSet:
-    """Domain AABBs on the device: aabb_lo, aabb_hi (D, 3) f32."""
+    """A DomainSet on the device: aabb_lo, aabb_hi (D, 3) f32 and the
+    stacked (D, ...) BVH fields, which are None in the AABB-only view the
+    cluster backend builds."""
 
     aabb_lo: torch.Tensor
     aabb_hi: torch.Tensor
+    child_lo: torch.Tensor = None
+    child_hi: torch.Tensor = None
+    child_node: torch.Tensor = None
+    child_count: torch.Tensor = None
+    v0: torch.Tensor = None
+    e1: torch.Tensor = None
+    e2: torch.Tensor = None
+    orig_id: torch.Tensor = None
+    leaf_size: int = 0
+
+    @classmethod
+    def from_host(cls, ds, device=None):
+        """The host DomainSet `ds` (numpy) on `device`."""
+        device = resolve_device(device)
+        return cls(**{k: torch.as_tensor(getattr(ds, k), device=device)
+                      for k in ("aabb_lo", "aabb_hi") + BVH_FIELDS},
+                   leaf_size=ds.leaf_size)
 
     @property
     def num_domains(self):
         return self.aabb_lo.shape[0]
+
+    def domain_bvh(self, arrays):
+        """A DeviceBVH view of one domain's arrays (a dict of BVH_FIELDS)."""
+        return DeviceBVH(**{k: arrays[k] for k in BVH_FIELDS},
+                         leaf_size=self.leaf_size)
+
+    def stacked(self):
+        return {k: getattr(self, k) for k in BVH_FIELDS}
 
 
 def domain_entries(dset, o, d, tmin, tmax):
@@ -40,3 +77,55 @@ def domain_entries(dset, o, d, tmin, tmax):
         dset.aabb_hi[None], tmin[:, None], tmax[:, None],
     )
     return torch.where(hit, t_entry, torch.full_like(t_entry, geom.INF))
+
+
+def trace_domain(dbvh, o, d, tmin, tmax, any_hit=False):
+    """Traversal of one domain for a wavefront: (t, prim, u, v, found).
+    tmax acts as the cull window (pass the current best-t)."""
+    return traverse(dbvh, o, d, tmin, tmax, any_hit)
+
+
+class MultiDomainIntersector:
+    """Drop-in intersector over a DeviceDomainSet (all domains resident): a
+    loop over the domains carrying the running nearest hit.  Equivalent to
+    the single-BVH intersector on the merged scene."""
+
+    def __init__(self, scene=None, n_domains=8, dset=None, leaf_size=16,
+                 branching=8, device=None):
+        if dset is None:
+            from ..domains.partition import partition_scene  # noqa: PLC0415
+
+            dset = partition_scene(scene, n_domains, leaf_size=leaf_size,
+                                   branching=branching)
+        self.host_dset = dset
+        self.dset = DeviceDomainSet.from_host(dset, device)
+
+    def _domains(self):
+        stacked = self.dset.stacked()
+        for k in range(self.dset.num_domains):
+            yield self.dset.domain_bvh({f: a[k] for f, a in stacked.items()})
+
+    def intersect(self, o, d, tmin, tmax):
+        n, dev = o.shape[0], o.device
+        bt, found = tmax, torch.zeros(n, dtype=torch.bool, device=dev)
+        bp = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        bu, bv = torch.zeros_like(tmax), torch.zeros_like(tmax)
+        for dbvh in self._domains():
+            t, p, u, v, f = trace_domain(dbvh, o, d, tmin, bt)
+            upd = f & (t < bt)
+            bt = torch.where(upd, t, bt)
+            bp = torch.where(upd, p, bp)
+            bu = torch.where(upd, u, bu)
+            bv = torch.where(upd, v, bv)
+            found = found | f
+        return Hits(t=torch.where(found, bt, tmax), prim=bp, u=bu, v=bv,
+                    valid=found)
+
+    def occluded(self, o, d, tmax):
+        tmin = torch.zeros_like(tmax)
+        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for dbvh in self._domains():
+            # occluded rays get an empty window and are not walked
+            win = torch.where(occ, torch.zeros_like(tmax), tmax)
+            occ = occ | trace_domain(dbvh, o, d, tmin, win, any_hit=True)[4]
+        return occ

@@ -203,7 +203,7 @@ def test_host_driven_frame_through_ooc_matches_reference():
     ref = np.asarray(j_render_device(jscene, jcam, JConfig(**kw),
                                      intersector=jx))
     ooc = OOCIntersector(scene, n_domains=4, num_slots=2, speculate=True,
-                         lookahead=False, device="cpu")
+                         lookahead=False, backend="cluster", device="cpu")
     img = render_device(scene, cam, RenderConfig(**kw), intersector=ooc,
                         device="cpu")
     np.testing.assert_allclose(img, ref, atol=2e-3, rtol=1e-3)

@@ -1,7 +1,8 @@
 """The port's out-of-core epoch scheduler and residency manager (plain
 kernel versions on the CPU) == spray_tpu's cluster-backend OOCIntersector
 (Pallas in interpret mode) and ResidencyManager, plus the port's own forms
-of the reference's scheduler properties (tests/test_epochs.py)."""
+of the reference's scheduler properties (tests/test_epochs.py); and the
+port's jnp backend against the reference's (more in test_torch_ooc_jnp.py)."""
 
 import itertools
 import time
@@ -47,7 +48,8 @@ def _t(x):
 
 def _run_port(seed, **kw):
     o, d, tmin, tmax, far = _rays(seed)
-    isect = OOCIntersector(TSCENE, n_domains=8, device="cpu", **kw)
+    isect = OOCIntersector(TSCENE, n_domains=8, backend="cluster",
+                           device="cpu", **kw)
     hits = isect.intersect(_t(o), _t(d), _t(tmin), _t(tmax))
     occ = isect.occluded(_t(o), _t(d), _t(far)).numpy()
     return isect, hits, occ
@@ -117,7 +119,7 @@ def test_commit_invariant_property():
     entry_t < committed t (the reference's commit rule)."""
     o, d, tmin, tmax, _ = map(_t, _rays(13))
     isect = OOCIntersector(TSCENE, n_domains=8, num_slots=4, speculate=True,
-                           device="cpu")
+                           backend="cluster", device="cpu")
     state = isect._run_epochs(init_state(isect.dset, o, d, tmin, tmax))
     assert not bool(needed_mask(state).any())
     viol = (~state.processed & torch.isfinite(state.entry_t)
@@ -167,8 +169,38 @@ def test_schedule_top_k_is_stable():
 
 
 def test_jnp_backend_is_refused():
-    with pytest.raises(NotImplementedError, match="cluster"):
-        OOCIntersector(TSCENE, n_domains=8, backend="jnp", device="cpu")
+    """The jnp backend, which the port refused before it had bvh/, runs:
+    `backend="jnp"` (and "auto" on the CPU) equals the reference's jnp
+    backend on the same scene, 8 domains through 4 slots: hits, occlusion,
+    scheduler counters and schedules."""
+    o, d, tmin, tmax, far = _rays(2)
+    ticks = itertools.count()
+    with pytest.MonkeyPatch.context() as mp:  # lookahead on in both
+        mp.setattr(time, "time", lambda: next(ticks) * 1e-9)
+        jx = JOOC(SCENE, n_domains=8, num_slots=4, speculate=True)
+    assert jx.backend == "jnp"
+    hj = jx.intersect(*map(jnp.asarray, (o, d, tmin, tmax)))
+    occ_j = np.asarray(jx.occluded(jnp.asarray(o), jnp.asarray(d),
+                                   jnp.asarray(far)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_epochs, "PROBE_MB_S", 0.0)
+        px = OOCIntersector(TSCENE, n_domains=8, num_slots=4, speculate=True,
+                            device="cpu")
+    assert px.backend == "jnp" and not px.device_batched
+    ht = px.intersect(*map(_t, (o, d, tmin, tmax)))
+    occ_t = px.occluded(_t(o), _t(d), _t(far)).numpy()
+    vj = np.asarray(hj.valid)
+    np.testing.assert_array_equal(ht.valid.numpy(), vj)
+    np.testing.assert_array_equal(ht.prim.numpy(), np.asarray(hj.prim))
+    np.testing.assert_allclose(ht.t.numpy()[vj], np.asarray(hj.t)[vj], rtol=2e-4)
+    np.testing.assert_array_equal(occ_t, occ_j)
+    assert vj.sum() > 50 and occ_j.sum() > 50
+    for k in STATS:
+        assert getattr(px.stats, k) == getattr(jx.stats, k), k
+    assert [e["scheduled"] for e in px.epoch_log] == [
+        e["scheduled"] for e in jx.epoch_log]
+    with pytest.raises(ValueError, match="backend"):
+        OOCIntersector(TSCENE, n_domains=8, backend="pallas", device="cpu")
 
 
 def test_residency_manager_matches_reference():

@@ -67,6 +67,8 @@ def test_entry_points_require_gpu(monkeypatch):
     from spray_tpu_torch.render import default_intersector, make_pipeline, render
     from spray_tpu_torch.residency.manager import ResidencyManager
     from spray_tpu_torch.sched.epochs import OOCIntersector
+    from spray_tpu_torch.bvh.traverse import BVHIntersector
+    from spray_tpu_torch.sched.multidomain import MultiDomainIntersector
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene = cornell_box()
@@ -85,6 +87,9 @@ def test_entry_points_require_gpu(monkeypatch):
                  lambda: default_intersector(scene, prefer="sweep"),
                  lambda: default_intersector(scene, prefer="brute"),
                  lambda: OOCIntersector(scene, n_domains=2, num_slots=1),
+                 lambda: OOCIntersector(scene, n_domains=2, backend="jnp"),
+                 lambda: BVHIntersector(scene),
+                 lambda: MultiDomainIntersector(scene, n_domains=2),
                  lambda: ResidencyManager(2, lambda d: {}),
                  lambda: make_diff_render_fn(scene, cam, cfg),
                  lambda: render_grad(scene, cam, cfg, {"albedo": albedo}),
