@@ -89,7 +89,22 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      each launch against its bound (the any-hit's counts the tests the
      serial order needs, brute.anyhit_serial_tests, and the tests the
      kernel began must equal it), sampled ray blocks against the plain
-     versions, the image against the default intersector's).
+     versions, the image against the default intersector's);
+  8. the distributed paths (spray_tpu_torch.dist) in a world of one rank
+     started by run_world, through NCCL: (a) make_sharded_render_grad at
+     phase 6's configuration with default_intersector, its loss and
+     gradients against phase 6's (step time, all_reduce count, launches);
+     (b) make_insitu_renderer on the same scene and camera at spp 1, 8
+     domains, one bucket holding the rank's rays, against the fast path's
+     frame through the 8-domain multi-domain intersector (max abs diff
+     1e-4; both frame times and their ratio, last_stats, host syncs,
+     launches of the slot and any-hit kernels); (c) tests_tpu/insitu_gate.py's
+     configuration (131,074 tris, 128x128) at its bucket and at one that
+     overflows, both against the fast path, and make_insitu_diff_fn's loss
+     and gradients against make_diff_render_fn's; (d) every per-page call
+     of one in-situ frame timed against its bound, and sampled calls held
+     against the plain versions, the slot kernel also against
+     walk_reference.
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The line before the last is the kernels JSON (seven kernels); the
 last line is {"ok": true, "device": {...}}.  Needs torch with CUDA and
@@ -494,11 +509,13 @@ class SlotRecorder:
             setattr(self.traverse, name, self.inner[kind])
 
 
-def slot_kernel_stats(torch, np, traverse, kind, calls, smi, tag):
+def slot_kernel_stats(torch, np, traverse, kind, calls, smi, tag,
+                      n_calls=None):
     """One frame's calls of one kernel, recorded by SlotRecorder (kind
     "nearest": the slot kernel; "anyhit": the any-hit kernel on one-entry
     domain lists): every call timed against its bound, and
-    SLOT_SAMPLE_CALLS of them held against the plain version on
+    n_calls (default SLOT_SAMPLE_CALLS) of them held against the plain
+    version on
     SLOT_SAMPLE_PACKETS live packets and one dead packet each; the slot
     kernel also against walk_reference on the middle live packet and that
     dead packet, counts included.  `tag` names the frame."""
@@ -521,7 +538,7 @@ def slot_kernel_stats(torch, np, traverse, kind, calls, smi, tag):
         st["bytes_ms"] += bytes_ms
         st["counts"] += cnt
     live_calls = [a for a in calls if bool((a[0] >= 0).any())]
-    pick = np.linspace(0, len(live_calls) - 1, min(SLOT_SAMPLE_CALLS,
+    pick = np.linspace(0, len(live_calls) - 1, min(n_calls or SLOT_SAMPLE_CALLS,
                                                    len(live_calls))).astype(int)
     for i in sorted(set(pick.tolist())):
         sub = sample_packets(torch, live_calls[i], SLOT_SAMPLE_PACKETS, dead=1)
@@ -739,7 +756,7 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
 
 def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
     """The training step at full size.  Returns (its numbers, launch counts
-    of the path)."""
+    of the path, its step time, loss and gradients for phase 8)."""
     from spray_tpu_torch.kernels import traverse
     from spray_tpu_torch.render import make_pipeline
 
@@ -776,9 +793,11 @@ def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
     for k in ("nearest_kernel", "anyhit_kernel"):
         check(f"phase6 {k} launched on the training path", launches[k] > 0,
               f"({launches[k]})")
+    ref = {"step_s": step, "loss": float(loss),
+           "grads": {k: g.cpu().numpy() for k, g in grads.items()}}
     return {"step_s": step, "warm_s": warm, "rays_traced": rays,
             "grays_per_sec_fwd_bwd": rays / step / 1e9, "peak_gib": peak / 2**30,
-            "loss": float(loss), "grad_norms": norms, "profile": prof}, launches
+            "loss": float(loss), "grad_norms": norms, "profile": prof}, launches, ref
 
 
 def kernel_modules():
@@ -788,8 +807,12 @@ def kernel_modules():
 
 
 def reset_launches():
+    """Every kernel's launch count and every collective count to 0."""
+    from spray_tpu_torch import dist
+
     for m in kernel_modules():
         m.reset_launches()
+    dist.reset_collectives()
 
 
 def read_launches():
@@ -1063,18 +1086,19 @@ def visit_kernel_stats(torch, np, tag, groups, smi):
     return st
 
 
-def timed_frames(torch, pipe, n):
-    """(warm-up s, [frame s] * n, last output) of a pipeline; launch counts
-    are set to 0 after the warm-up frame."""
+def timed_frames(torch, run, n):
+    """(warm-up s, [frame s] * n, last output) of run(), which synchronises
+    the card before it returns (a Pipeline's run); launch and collective
+    counts are set to 0 after the warm-up frame."""
     t0 = time.perf_counter()
-    pipe.run()
+    run()
     warm = time.perf_counter() - t0
     reset_launches()
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe.run()  # synchronises the card before returning
+        out = run()
         times.append(time.perf_counter() - t0)
     return warm, times, out
 
@@ -1351,7 +1375,7 @@ def phase7_visit_path(torch, np, prefer, scene, cam, cfg, img_ref, dev, smi):
     pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=isect,
                          device=dev)
     torch.cuda.reset_peak_memory_stats()
-    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    warm, times, out = timed_frames(torch, pipe.run, ALT_TIMED)
     launches = read_launches()
     frame, rays = min(times), pipe.rays_traced(out)
     peak = torch.cuda.max_memory_allocated()
@@ -1404,7 +1428,7 @@ def phase7_routed(torch, np, scene, pages, cam, cfg, isect, img_ref, shadows,
                                                     routed="grid")
     pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=grid,
                          device=dev)
-    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    warm, times, out = timed_frames(torch, pipe.run, ALT_TIMED)
     launches = read_launches()
     frame, rays = min(times), pipe.rays_traced(out)
     prof = profile_top(torch, "phase7 routed='grid' forward frame", pipe.run)
@@ -1602,7 +1626,7 @@ def phase7_brute(torch, np, tag, scene, cam, cfg, dev, smi):
     isect = PallasBruteIntersector(scene, device=dev)
     pipe = make_pipeline(scene, cam, cfg, backward=False, intersector=isect,
                          device=dev)
-    warm, times, out = timed_frames(torch, pipe, ALT_TIMED)
+    warm, times, out = timed_frames(torch, pipe.run, ALT_TIMED)
     launches = read_launches()
     frame, rays = min(times), pipe.rays_traced(out)
     prof = profile_top(torch, f"{tag} forward frame", pipe.run)
@@ -1626,6 +1650,238 @@ def phase7_brute(torch, np, tag, scene, cam, cfg, dev, smi):
     return ({"tris": scene.num_faces, "frame_s": frame, "warm_s": warm,
              "rays_traced": rays, "grays_per_sec": rays / frame / 1e9,
              "pixels_outside": n_px, "profile": prof}, kst, launches)
+
+
+PHASE8_TIMED = 2  # timed steps and frames of each phase-8 path, after a warm-up
+PHASE8_SAMPLE_CALLS = 4  # per-page calls of each in-situ kernel held against plain
+GATE_BUCKETS = (1 << 14, 4096)  # tests_tpu/insitu_gate.py's bucket, and overflow
+
+
+def max_diff(np, a, b):
+    a, b = (x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x) for x in (a, b))
+    return float(np.abs(a - b).max())
+
+
+def phase8_rayshard(torch, np, mesh, scene, cam, cfg, train_ref, smi):
+    """(a) make_sharded_render_grad at the bench configuration, with
+    default_intersector, against phase 6's training step."""
+    from spray_tpu_torch import dist as sdist
+    from spray_tpu_torch.dist import rayshard
+    from spray_tpu_torch.render import default_intersector
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    step = rayshard.make_sharded_render_grad(
+        scene, cam, cfg, mesh, make_intersector=lambda s: default_intersector(
+            s, device=dev))
+    build = time.perf_counter() - t0
+    ids, _ = rayshard.padded_pixel_ids(cam, mesh.size)
+    params = {k: torch.as_tensor(np.asarray(getattr(scene, k), np.float32),
+                                 device=dev) for k in ("vertices", "albedo")}
+    def run():
+        out = step(params, ids)
+        torch.cuda.synchronize()
+        return out
+
+    _, times, (_, loss, grads) = timed_frames(torch, run, PHASE8_TIMED)
+    launches, coll = read_launches(), dict(sdist.collectives)
+    steps = PHASE8_TIMED
+    print(f"phase8 rayshard: {mesh.size} rank(s), {torch.distributed.get_backend()}"
+          f"; intersector built in "
+          f"{build:.2f} s; step times {[round(t, 4) for t in times]} s; min "
+          f"{min(times):.4f} s vs phase 6's {train_ref['step_s']:.4f} s; over "
+          f"{steps} steps: launches {launches}, collectives {coll} "
+          f"({coll['all_reduce'] / steps:g} all_reduce a step); card {smi}",
+          flush=True)
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"phase8 rayshard {k} launched on the path", launches[k] > 0,
+              f"({launches[k]})")
+    check("phase8 rayshard: one all_reduce a gradient tensor and one for the "
+          "loss", coll["all_reduce"] == steps * (len(params) + 1), f"({coll})")
+    lr = train_ref["loss"]
+    check("phase8 rayshard loss ~ phase 6's (rtol 1e-5, atol 1e-7)",
+          abs(float(loss) - lr) <= 1e-7 + 1e-5 * abs(lr),
+          f"({float(loss):.8f} vs {lr:.8f})")
+    for k, g in grads.items():
+        ref = train_ref["grads"][k]
+        got = g.cpu().numpy()
+        bad = ~np.isclose(got, ref, rtol=1e-4, atol=1e-7)
+        check(f"phase8 rayshard {k} gradients ~ phase 6's (rtol 1e-4, atol 1e-7)",
+              not bad.any() and np.isfinite(got).all(),
+              f"({int(bad.sum())} of {got.size} outside, max abs diff "
+              f"{float(np.abs(got - ref).max()):.3g}, max |g| "
+              f"{float(np.abs(ref).max()):.4g})")
+    return {"step_s": min(times), "times": times, "intersector_build_s": build,
+            "loss": float(loss), "collectives_per_step": {
+                k: v / steps for k, v in coll.items()},
+            "launches_per_step": {k: v / steps for k, v in launches.items()}}, launches
+
+
+def insitu_vs_fast(torch, np, tag, mesh, scene, cam, cfg, bucket, smi,
+                   fast_isect, timed=1):
+    """make_insitu_renderer at (n_domains 8, bucket) against the fast path's
+    frame through fast_isect (max abs diff <= 1e-4, the bar of
+    tests_tpu/insitu_gate.py): `timed` frames of each after a warm-up, the
+    in-situ frame's launches, syncs and collectives per frame.  Returns
+    (numbers, the renderer, launches of one frame)."""
+    from spray_tpu_torch import dist as sdist
+    from spray_tpu_torch.dist.epochs import make_insitu_renderer
+    from spray_tpu_torch.integrators.device import make_render_fn
+    from spray_tpu_torch.integrators.wavefront import make_scene_arrays
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    render = make_insitu_renderer(scene, cam, cfg, mesh, n_domains=8,
+                                  bucket=bucket)
+    setup = time.perf_counter() - t0
+    fn = make_render_fn(scene, cam, cfg, fast_isect, device=dev)
+    arrays = make_scene_arrays(scene, dev)
+
+    def fast():
+        return fn(arrays).cpu().numpy()
+
+    _, t_in, img = timed_frames(torch, render, timed)
+    launches = {k: v // timed for k, v in read_launches().items()}
+    coll = {k: v // timed for k, v in sdist.collectives.items()}
+    stats = dict(render.last_stats)
+    _, t_fast, ref = timed_frames(torch, fast, timed)
+    out = {"bucket": bucket, "setup_s": setup, "last_stats": stats,
+           "collectives": coll, "launches": launches, "insitu_s": min(t_in),
+           "fast_s": min(t_fast), "ratio": min(t_in) / min(t_fast),
+           "insitu_times": t_in, "fast_times": t_fast}
+    diff = max_diff(np, img, ref)
+    out["max_abs_diff"] = diff
+    print(f"{tag}: in-situ bucket {bucket}, setup {setup:.2f} s; last_stats "
+          f"{stats}; one frame: {coll['host_syncs']} host syncs, collectives "
+          f"{ {k: v for k, v in coll.items() if k != 'host_syncs'} }, launches "
+          f"{launches}; frame {out['insitu_s']:.4f} s (times "
+          f"{[round(t, 4) for t in t_in]}) vs fast path {out['fast_s']:.4f} s "
+          f"({[round(t, 4) for t in t_fast]}), ratio {out['ratio']:.3f}; max "
+          f"abs diff {diff:.3g}; card {smi}", flush=True)
+    check(f"{tag} in-situ image ~ fast path (max abs diff <= 1e-4)",
+          diff <= 1e-4 and bool(np.isfinite(img).all()) and img.mean() > 0,
+          f"({diff:.3g}; mean {img.mean():.6f} vs {ref.mean():.6f})")
+    for k in ("nearest_slot_kernel", "anyhit_kernel"):
+        check(f"{tag} {k} launched on the in-situ path", launches[k] > 0,
+              f"({launches[k]})")
+    return out, render, launches
+
+
+def phase8_insitu(torch, np, mesh, scene, cam, smi):
+    """(b) the in-situ frame at full width against the fast path, and (d)
+    sampled per-page calls of its two kernels against their plain
+    versions (the slot kernel also against walk_reference)."""
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.kernels import traverse
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+
+    cfg1 = RenderConfig(width=512, height=512, spp=1, bounces=2,
+                        integrator="pt", nee=True, seed=0)
+    t0 = time.perf_counter()
+    fast8 = MultiDomainClusterIntersector(scene, n_domains=8, device=mesh.device)
+    print(f"phase8 in-situ: fast-path intersector, 8 domains, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    bucket = cam.width * cam.height // mesh.size
+    out, render, launches = insitu_vs_fast(
+        torch, np, "phase8 in-situ 512x512", mesh, scene, cam, cfg1, bucket, smi,
+        fast8, timed=PHASE8_TIMED)
+    out["profile"] = profile_top(torch, "phase8 in-situ 512x512 frame", render)
+    del fast8
+    with SlotRecorder(traverse) as recorder:
+        render()
+    st = {kind: slot_kernel_stats(torch, np, traverse, kind,
+                                  recorder.calls[kind], smi,
+                                  "phase8 in-situ frame",
+                                  n_calls=PHASE8_SAMPLE_CALLS)
+          for kind in ("nearest", "anyhit")}
+    del recorder, render
+    return out, st, launches
+
+
+def phase8_gate(torch, np, mesh, smi):
+    """(c) tests_tpu/insitu_gate.py's configuration at its bucket and at a
+    bucket that overflows, against the fast path, and the in-situ
+    differentiable step against make_diff_render_fn."""
+    from spray_tpu_torch.core.camera import make_camera
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.diff import make_diff_render_fn
+    from spray_tpu_torch.dist.epochs import make_insitu_diff_fn
+    from spray_tpu_torch.io.scenes import wisp_cloud
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+
+    dev = mesh.device
+    scene = wisp_cloud(n_blobs=8, tris_per_blob=16384, seed=3)
+    cam = make_camera(eye=(14.0, 10.0, 18.0), lookat=(0, 0, 0), up=(0, 1, 0),
+                      fov_y_deg=45, width=128, height=128)
+    cfg = RenderConfig(spp=1, bounces=2, integrator="pt", seed=0)
+    fast8 = MultiDomainClusterIntersector(scene, n_domains=8, device=dev)
+    gate = {}
+    for bucket in GATE_BUCKETS:
+        gate[bucket], _, _ = insitu_vs_fast(
+            torch, np, f"phase8 gate 128x128 bucket {bucket}", mesh, scene, cam,
+            cfg, bucket, smi, fast8)
+    e0, e1 = (gate[b]["last_stats"]["epochs"] for b in GATE_BUCKETS)
+    check(f"phase8 gate: bucket {GATE_BUCKETS[1]} overflows into more epochs",
+          e1 > e0, f"({e1} vs {e0})")
+    step = make_insitu_diff_fn(scene, cam, cfg, mesh, n_domains=8, bucket=GATE_BUCKETS[0])
+    params = {k: torch.as_tensor(np.asarray(getattr(scene, k), np.float32),
+                                 device=dev) for k in ("vertices", "albedo")}
+    loss_d, grads_d = step(params)
+    render = make_diff_render_fn(scene, cam, cfg, make_intersector=lambda s: fast8,
+                                 device=dev)
+    w = torch.tensor([0.4, 0.8, 1.3], device=dev)
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss_r = torch.mean(render(p) * w)
+    grads_r = dict(zip(p, torch.autograd.grad(loss_r, list(p.values()))))
+    lr = float(loss_r.detach())
+    check("phase8 gate in-situ diff loss ~ make_diff_render_fn's (rtol 1e-5)",
+          abs(float(loss_d) - lr) <= 1e-5 * abs(lr), f"({float(loss_d):.8f} vs {lr:.8f})")
+    for k in params:
+        gd, gr = grads_d[k].cpu().numpy(), grads_r[k].cpu().numpy()
+        scale = float(np.abs(gr).max())
+        bad = ~np.isclose(gd, gr, rtol=1e-4, atol=1e-5 * scale)
+        check(f"phase8 gate in-situ diff {k} gradients ~ make_diff_render_fn's "
+              "(atol 1e-5 of the largest, rtol 1e-4)",
+              scale > 0 and not bad.any() and np.isfinite(gd).all(),
+              f"({int(bad.sum())} of {gd.size} outside, max abs diff "
+              f"{float(np.abs(gd - gr).max()):.3g}, max |g| {scale:.4g})")
+    gate["diff_loss"] = float(loss_d)
+    return gate
+
+
+def phase8_rank(rank, world_size, smi, train_ref):
+    """Phase 8 in one rank of a NCCL world: the distributed paths on the
+    card.  Returns its numbers, its failed checks and the in-situ kernels'
+    stats."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from spray_tpu_torch.core.camera import make_camera
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.dist.rayshard import make_mesh
+    from spray_tpu_torch.io.scenes import wisp_cloud
+
+    mesh = make_mesh(world_size)
+    check("phase8 the world is a NCCL group on the card",
+          dist.get_backend() == "nccl" and mesh.device.type == "cuda",
+          f"({dist.get_backend()}, {mesh.device}, {mesh.size} rank(s))")
+    scene = wisp_cloud(n_blobs=8, tris_per_blob=131072, seed=3)
+    cam = make_camera(eye=(14.0, 10.0, 18.0), lookat=(0, 0, 0), up=(0, 1, 0),
+                      fov_y_deg=45, width=512, height=512)
+    cfg = RenderConfig(width=512, height=512, spp=4, bounces=2,
+                       integrator="pt", nee=True, seed=0)
+    rayshard, rs_launches = phase8_rayshard(torch, np, mesh, scene, cam, cfg,
+                                            train_ref, smi)
+    phase_done("phase8 (a) rayshard")
+    insitu, st, in_launches = phase8_insitu(torch, np, mesh, scene, cam, smi)
+    phase_done("phase8 (b, d) in-situ")
+    del scene
+    gate = phase8_gate(torch, np, mesh, smi)
+    phase_done("phase8 (c) gate")
+    return {"failed": list(FAILED), "rayshard": rayshard, "insitu": insitu,
+            "gate": gate, "stats": st,
+            "launches": {"rayshard": rs_launches, "insitu": in_launches}}
 
 
 def frame_numbers(s, frame_sample):
@@ -1921,7 +2177,8 @@ def main():
                                              smi)
     slot, sched_any = sched["nearest"], sched["anyhit"]
     phase_done("phase5 (scheduler)")
-    train, train_launches = phase6_train(torch, scene, cam, cfg, isect, dev, smi)
+    train, train_launches, train_ref = phase6_train(torch, scene, cam, cfg,
+                                                    isect, dev, smi)
     phase_done("phase6 (training step)")
 
     # ---- phase 7: the alternate intersectors at full width ------------------
@@ -1944,9 +2201,20 @@ def main():
         brute_frames[tag], brute_k[tag], brute_launches[tag] = phase7_brute(
             torch, np, tag, bscene, bcam, cfg, dev, smi)
     phase_done("phase7 (brute)")
+
+    # ---- phase 8: the distributed paths, a world of one NCCL rank -----------
+    from spray_tpu_torch.dist.launch import run_world
+
+    del isect, pipe, out, img
+    torch.cuda.empty_cache()
+    p8 = run_world(phase8_rank, 1, smi, train_ref)[0]
+    FAILED.extend(p8["failed"])
+    phase_done("phase8 (distributed)")
     by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
                    "train": train_launches[k],
-                   "routed_grid": routed_launches[k]} for k in launches}
+                   "routed_grid": routed_launches[k],
+                   "rayshard": p8["launches"]["rayshard"][k],
+                   "insitu": p8["launches"]["insitu"][k]} for k in launches}
 
     kernels = []
     for kind, name, replaces in (
@@ -1993,6 +2261,11 @@ def main():
                                   **frame_numbers(sched_any, "config4_noprefetch")}
             entry["routed_grid"] = {"launches": routed_launches[name],
                                     **frame_numbers(grid_k["anyhit"], "routed='grid'")}
+            entry["insitu"] = {"launches": p8["launches"]["insitu"][name],
+                               **frame_numbers(p8["stats"]["anyhit"],
+                                               "in-situ 512x512")}
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       p8["stats"]["anyhit"]["s_err"])
         kernels.append(entry)
     kernels.append({
         "name": "nearest_slot_kernel", "route": "cuda",
@@ -2000,11 +2273,14 @@ def main():
         "replaces": "spray_tpu/kernels/traverse.py:281",
         "launches": sched_launches["nearest_slot_kernel"], "library_ms": None,
         **frame_numbers(slot, "config4_noprefetch"),
-        "max_abs_err": max(slot["s_err"], grid_k["nearest"]["s_err"]),
+        "max_abs_err": max(slot["s_err"], grid_k["nearest"]["s_err"],
+                           p8["stats"]["nearest"]["s_err"]),
         "launches_by_path": by_path["nearest_slot_kernel"],
         "design": "warp_per_ray", "blocks_per_sm": blocks_per_sm["nearest_slot_kernel"],
         "routed_grid": {"launches": routed_launches["nearest_slot_kernel"],
                         **frame_numbers(grid_k["nearest"], "routed='grid'")},
+        "insitu": {"launches": p8["launches"]["insitu"]["nearest_slot_kernel"],
+                   **frame_numbers(p8["stats"]["nearest"], "in-situ 512x512")},
     })
     binned_src = "spray_tpu_torch/kernels/csrc/binned.cu"
     brute_src = "spray_tpu_torch/kernels/csrc/brute.cu"
@@ -2074,7 +2350,9 @@ def main():
                       "alternates": {"sweep": visit_frames["sweep"],
                                      "binned": visit_frames["binned"],
                                      "routed_grid": routed,
-                                     "brute": brute_frames}}), flush=True)
+                                     "brute": brute_frames},
+                      "dist": {k: p8[k] for k in ("rayshard", "insitu", "gate")}}),
+          flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"nvidia-smi: {smi}", flush=True)

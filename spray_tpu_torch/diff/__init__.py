@@ -72,6 +72,17 @@ class DetachedIntersector:
         return self.inner.occluded(o.detach(), d.detach(), tmax.detach())
 
 
+def scene_consts(scene, device):
+    """The scene's faces (int64) and emission on `device`: the constants of
+    `diff_scene_arrays`."""
+    return {
+        "faces": torch.as_tensor(np.asarray(scene.faces, np.int64),
+                                 device=device),
+        "emission": torch.as_tensor(np.asarray(scene.emission, np.float32),
+                                    device=device),
+    }
+
+
 def diff_scene_arrays(scene, params, consts):
     """Shading arrays from the differentiable params {'vertices', 'albedo',
     'emission'} (any subset; the scene's values stand in for the rest).
@@ -124,12 +135,7 @@ def make_diff_render_fn(scene, camera, cfg, make_intersector=None,
         tile_swizzle_order(camera.width, camera.height).astype(np.int64),
         device=device)
     inv = torch.argsort(pids)  # trace order -> image order, as a gather
-    consts = {
-        "faces": torch.as_tensor(np.asarray(scene.faces, np.int64),
-                                 device=device),
-        "emission": torch.as_tensor(np.asarray(scene.emission, np.float32),
-                                    device=device),
-    }
+    consts = scene_consts(scene, device)
 
     def render(params):
         arrays, vertices, faces = diff_scene_arrays(scene, params, consts)

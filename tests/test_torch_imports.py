@@ -41,6 +41,8 @@ def test_port_imports_no_jax():
     assert "spray_tpu_torch.diff" in res["mods"]
     for m in ("brute", "binned", "sweep"):
         assert f"spray_tpu_torch.kernels.{m}" in res["mods"]
+    for m in ("rayshard", "epochs", "launch", "dryrun"):
+        assert f"spray_tpu_torch.dist.{m}" in res["mods"]
     assert res["bad"] == []
 
 
@@ -69,6 +71,9 @@ def test_entry_points_require_gpu(monkeypatch):
     from spray_tpu_torch.sched.epochs import OOCIntersector
     from spray_tpu_torch.bvh.traverse import BVHIntersector
     from spray_tpu_torch.sched.multidomain import MultiDomainIntersector
+    from spray_tpu_torch.dist.epochs import make_insitu_diff_fn, make_insitu_renderer
+    from spray_tpu_torch.dist.launch import run_world
+    from spray_tpu_torch.dist.rayshard import make_sharded_render_grad, sharded_render
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene = cornell_box()
@@ -93,7 +98,12 @@ def test_entry_points_require_gpu(monkeypatch):
                  lambda: ResidencyManager(2, lambda d: {}),
                  lambda: make_diff_render_fn(scene, cam, cfg),
                  lambda: render_grad(scene, cam, cfg, {"albedo": albedo}),
-                 lambda: render_device(scene, cam, cfg)):
+                 lambda: render_device(scene, cam, cfg),
+                 lambda: make_insitu_renderer(scene, cam, cfg, device=None),
+                 lambda: make_insitu_diff_fn(scene, cam, cfg, device=None),
+                 lambda: sharded_render(scene, cam, cfg, device=None),
+                 lambda: make_sharded_render_grad(scene, cam, cfg, device=None),
+                 lambda: run_world(print, 1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     img = render(scene, cam, cfg, device="cpu")
