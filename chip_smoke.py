@@ -6,7 +6,8 @@
 Phases (each prints its lines; any failed check makes the run exit 1):
   1. the card's name and power limit; nvcc builds every kernel source of
      spray_tpu_torch/kernels/csrc into build/kernels/, one nvcc per source,
-     all started together; each kernel's registers, shared memory, stack and
+     and g++ the native host library (spray_tpu_torch/native) into
+     build/native/, all started together; each kernel's registers, shared memory, stack and
      spills from nvcc's report, and the resident blocks per SM of the three
      traversal kernels (warp-per-ray walks, none may spill) and of the
      split nearest visit kernel, and the visits a block of each visit kernel
@@ -104,9 +105,25 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      and gradients against make_diff_render_fn's; (d) every per-page call
      of one in-situ frame timed against its bound, and sampled calls held
      against the plain versions, the slot kernel also against
-     walk_reference.
+     walk_reference;
+  9. the host layers and entry points: (a) the native library loaded (a
+     missing one fails the run), the bench scene's pages built with it and
+     with the numpy fallback, each timed, both equal to phase 4's bit for
+     bit, and phase 4's rays_traced beside BENCH_r05.json's (a record);
+     (b) the CLI in this process (spray_tpu_torch.cli.main): render
+     --builtin wisp at its defaults (512x512, spp 16, bounces 3), then the
+     ooc and baseline schedulers at 256x256, spp 1, 16 domains in 4 slots
+     (byte-identical images, epochs > 0), and inspect; (c) fit on phase 2's
+     wisp scene at 128x128 through the card's default_intersector,
+     FIT_STEPS steps (the loss falls at every step), the same steps with
+     fit(device="cpu") on the same inputs (each loss within FIT_RTOL), and
+     the card's run cut at a checkpoint and resumed (the losses bit-equal); (d) InteractiveViewer, two frames
+     and an orbit at 64x64; (e) bench_torch.py --iters 2 as its own
+     process (its JSON line parses, rays_per_frame == phase 6's); (f)
+     tests_gpu/parity_gate.py as its own process (exit 0).
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The line before the last is the kernels JSON (seven kernels); the
+after (phase 9's subprocesses count their own).  The line before the last
+is the kernels JSON (seven kernels); the
 last line is {"ok": true, "device": {...}}.  Needs torch with CUDA and
 nvcc; imports nothing of JAX.
 """
@@ -209,16 +226,15 @@ class PlainIntersector:
 
 def compare_hits(tag, ref, got):
     """The bar of the JAX package's kernel tests."""
-    vr, vg = ref.valid, got.valid
-    check(f"{tag} valid masks equal", bool((vr == vg).all()),
-          f"({int((vr != vg).sum())} differ of {vr.numel()})")
-    m = vr & vg
-    tr, tg = ref.t[m], got.t[m]
-    close = (tg - tr).abs() <= 2e-5 + 2e-4 * tr.abs()
-    check(f"{tag} t within rtol 2e-4 atol 2e-5", bool(close.all()),
-          f"(max abs diff {float((tg - tr).abs().max()) if m.any() else 0.0:.3g})")
-    mism = (ref.prim[m] != got.prim[m]) & ((tr - tg).abs() > 1e-4 * tr.clamp(min=1))
-    rate = float(mism.float().mean()) if m.any() else 0.0
+    from spray_tpu_torch.parity import hit_mismatch
+
+    s = hit_mismatch(ref, got, t_tol=(2e-4, 2e-5, 0.0), tie_tol=(1e-4, 0.0, 1.0))
+    c = s["counts"]
+    check(f"{tag} valid masks equal", c["valid_mismatch"] == 0,
+          f"({c['valid_mismatch']} differ of {s['lanes']})")
+    check(f"{tag} t within rtol 2e-4 atol 2e-5", c["t_bad"] == 0,
+          f"(max abs diff {s['t_max_abs']:.3g})")
+    rate = s["prim_mismatch_nontie"]
     check(f"{tag} non-tie prim mismatch < 0.2%", rate < 0.002, f"({rate:.5f})")
 
 
@@ -1884,6 +1900,231 @@ def phase8_rank(rank, world_size, smi, train_ref):
             "launches": {"rayshard": rs_launches, "insitu": in_launches}}
 
 
+BENCH_REF = ROOT / "BENCH_r05.json"  # the reference's last bench line (a TPU run)
+FIT_STEPS = 4  # steps of phase 9's fit, with a checkpoint at half of them
+FIT_LR = 0.02  # Adam's rate there: the loss falls at every one of the steps
+FIT_RTOL = 1e-3  # each card loss against fit(device="cpu")'s, relative
+
+
+def phase9_native(np, scene, pages, rays):
+    """(a) The native builder: the library loads (a missing one fails the
+    run), and the bench scene's pages built with it equal the pages the
+    numpy fallback builds, and phase 4's, bit for bit; each build timed."""
+    from spray_tpu_torch import native
+    from spray_tpu_torch.kernels.multidomain import build_cluster_domains
+
+    lib = native.get_lib()
+    check("phase9 (a) native library built and loaded", lib is not None,
+          f"({getattr(lib, '_name', None)})")
+    built, secs = {}, {}
+    saved = native._loaded.get("lib")
+    for tag, loaded in (("native", saved), ("fallback", None)):
+        native._loaded["lib"] = loaded  # None: as on a host with no g++
+        try:
+            t0 = time.perf_counter()
+            built[tag] = build_cluster_domains(scene)
+            secs[tag] = time.perf_counter() - t0
+        finally:
+            native._loaded["lib"] = saved
+    for tag in ("native", "fallback"):
+        got = built[tag]
+        same = got.keys() == pages.keys() and all(
+            np.asarray(got[k]).dtype == np.asarray(pages[k]).dtype
+            and np.asarray(got[k]).tobytes() == np.asarray(pages[k]).tobytes()
+            for k in pages)
+        check(f"phase9 (a) bench pages built with the {tag} path == phase 4's, "
+              "bit for bit", same)
+    ref = (json.loads(BENCH_REF.read_text())["parsed"]["detail"]["rays_per_frame"]
+           if BENCH_REF.exists() else None)
+    print(f"phase9 (a): bench pages built in {secs['native']:.2f} s with the "
+          f"native library, {secs['fallback']:.2f} s with the numpy fallback; "
+          f"phase 4 rays_traced {rays} beside {BENCH_REF.name}'s {ref} (a "
+          "record, not a check)", flush=True)
+    return {"pages_native_s": secs["native"], "pages_fallback_s": secs["fallback"],
+            "rays_traced": rays, "bench_r05_rays": ref}
+
+
+def run_cli(args):
+    """spray_tpu_torch.cli.main(args) in this process, launch counts set to
+    0 just before and read just after.  Returns (its printed text, launch
+    counts, seconds)."""
+    import contextlib
+    import io
+
+    from spray_tpu_torch import cli
+
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    secs = time.perf_counter() - t0
+    return buf.getvalue(), read_launches(), secs
+
+
+def phase9_cli(tmp, smi):
+    """(b) The CLI render app in-process: one-shot on the builtin wisp scene
+    at the CLI's defaults, then the ooc and baseline schedulers at 256x256,
+    spp 1 (byte-identical images), and inspect."""
+    out, res = {}, {}
+    runs = (("one_shot", [], ("nearest_kernel", "anyhit_kernel")),
+            ("ooc", ["--scheduler", "ooc", "--size", "256", "--spp", "1"],
+             ("nearest_slot_kernel", "anyhit_kernel")),
+            ("baseline", ["--scheduler", "baseline", "--domains", "16",
+                          "--slots", "4", "--size", "256", "--spp", "1"],
+             ("nearest_slot_kernel", "anyhit_kernel")))
+    for tag, extra, kernels in runs:
+        out[tag] = Path(tmp) / f"{tag}.ppm"
+        text, launches, secs = run_cli(["render", "--builtin", "wisp", "-o",
+                                        str(out[tag]), *extra])
+        stats = json.loads(text.strip().splitlines()[-1])
+        print(f"phase9 (b) cli render {tag}: {json.dumps(stats)}; launches "
+              f"{launches}; {secs:.2f} s in all (scene and pages included); "
+              f"card {smi}", flush=True)
+        check(f"phase9 (b) cli {tag}: image written, backend cuda",
+              out[tag].exists() and stats["backend"] == "cuda", f"({stats['output']})")
+        for k in kernels:
+            check(f"phase9 (b) cli {tag}: {k} launched", launches[k] > 0,
+                  f"({launches[k]})")
+        if tag != "one_shot":
+            check(f"phase9 (b) cli {tag}: epochs > 0", stats["epochs"] > 0,
+                  f"({stats['epochs']})")
+        res[tag] = {"stats": stats, "launches": launches, "cli_s": secs}
+    check("phase9 (b) cli ooc and baseline images byte-identical",
+          out["ooc"].read_bytes() == out["baseline"].read_bytes())
+    text, _, _ = run_cli(["inspect", "--builtin", "wisp"])
+    info = json.loads(text)
+    print(f"phase9 (b) cli inspect: {json.dumps(info)}", flush=True)
+    check("phase9 (b) cli inspect: triangles == the render's scene",
+          info["triangles"] == res["one_shot"]["stats"]["scene_tris"],
+          f"({info['triangles']})")
+    return res
+
+
+def phase9_fit(torch, np, scene, tmp, dev):
+    """(c) fit on the wisp scene at 128x128 with the card's
+    default_intersector: FIT_STEPS steps in one run, the loss falling at
+    every step; the same steps with fit(device="cpu") on the same inputs
+    (the CPU's default intersector), each loss within FIT_RTOL of the
+    card's; and the card's run cut at a checkpoint and resumed, the
+    resumed losses equal to the uninterrupted ones bit for bit."""
+    from spray_tpu_torch.core.camera import make_camera
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.diff import make_diff_render_fn
+    from spray_tpu_torch.optim import fit
+    from spray_tpu_torch.render import default_intersector
+
+    isect = default_intersector(scene, device=dev)
+    cpu_isect = default_intersector(scene, device="cpu")
+    cam = make_camera(eye=(14.0, 10.0, 18.0), lookat=(0, 0, 0), up=(0, 1, 0),
+                      fov_y_deg=45, width=128, height=128)
+    cfg = RenderConfig(spp=1, bounces=2, integrator="pt", seed=3)
+    albedo = torch.as_tensor(scene.albedo, device=dev)
+    target = make_diff_render_fn(scene, cam, cfg, lambda _: isect,
+                                 device=dev)({"albedo": albedo}).detach()
+    start = {"albedo": scene.albedo * 0.4 + 0.2}
+    kw = dict(lr=FIT_LR, make_intersector=lambda _: isect, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, losses = fit(scene, cam, cfg, target, start, steps=FIT_STEPS, **kw)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    _, cpu_losses = fit(scene, cam, cfg, target.cpu(), start, steps=FIT_STEPS,
+                        lr=FIT_LR, make_intersector=lambda _: cpu_isect,
+                        device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    ckpt = str(Path(tmp) / "fit.npz")
+    half = FIT_STEPS // 2
+    _, first = fit(scene, cam, cfg, target, start, steps=half,
+                   checkpoint_path=ckpt, checkpoint_every=half, **kw)
+    _, resumed = fit(scene, cam, cfg, target, start, steps=FIT_STEPS,
+                     checkpoint_path=ckpt, checkpoint_every=FIT_STEPS + 1, **kw)
+    rel = [abs(a - b) / b for a, b in zip(losses, cpu_losses)]
+    print(f"phase9 (c) fit: {type(isect).__name__}, {scene.num_faces} tris, "
+          f"128x128, lr {FIT_LR}: losses {losses} in {secs:.2f} s; on the CPU "
+          f"({type(cpu_isect).__name__}) {cpu_losses} in {cpu_secs:.2f} s, "
+          f"relative differences {rel}; first {half} steps {first}, resumed "
+          f"{resumed}; launches {launches}", flush=True)
+    check(f"phase9 (c) fit: resumed steps {half + 1}-{FIT_STEPS} equal the "
+          "uninterrupted run's bit for bit",
+          first + resumed == losses, f"({first + resumed} vs {losses})")
+    check("phase9 (c) fit: the loss falls at every step",
+          all(b < a for a, b in zip(losses, losses[1:])), f"({losses})")
+    check(f"phase9 (c) fit: each loss within {FIT_RTOL} (relative) of "
+          "fit(device='cpu')'s", len(rel) == FIT_STEPS and max(rel) <= FIT_RTOL,
+          f"(largest {max(rel):.3g})")
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"phase9 (c) fit: {k} launched", launches[k] > 0, f"({launches[k]})")
+    return {"losses": losses, "cpu_losses": cpu_losses, "rel_diff": rel,
+            "fit_s": secs, "cpu_fit_s": cpu_secs, "launches": launches}
+
+
+def phase9_viewer(torch, np, scene, dev):
+    """(d) InteractiveViewer on the card: two frames and an orbit at 64x64."""
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.viewer import InteractiveViewer
+
+    v = InteractiveViewer(scene, RenderConfig(spp=1, bounces=2, integrator="pt"),
+                          size=64, device=dev)
+    reset_launches()
+    img1, img2 = v.frame(), v.frame()
+    v.orbit(dtheta=0.3)
+    img3 = v.frame()
+    launches = read_launches()
+    ok = all(i.shape == (64, 64, 3) and np.isfinite(i).all()
+             for i in (img1, img2, img3))
+    print(f"phase9 (d) viewer: means {img1.mean():.6f} {img2.mean():.6f} "
+          f"{img3.mean():.6f}; launches {launches}", flush=True)
+    check("phase9 (d) viewer: frames finite, 64x64, the orbit moved the camera",
+          ok and not np.allclose(img1, img3))
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"phase9 (d) viewer: {k} launched", launches[k] > 0, f"({launches[k]})")
+    return {"launches": launches}
+
+
+def run_script(cmd, timeout):
+    """A script of the checkout run as its own process; returns
+    (exit code, its stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def phase9_bench_and_gate(train_rays, smi):
+    """(e) bench_torch.py --iters 2 and (f) tests_gpu/parity_gate.py, each
+    as its own process."""
+    rc, out, secs = run_script(["bench_torch.py", "--iters", "2"], 600)
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        line = None
+    check("phase9 (e) bench_torch.py exits 0 and its last line parses",
+          rc == 0 and line is not None, f"(exit {rc})")
+    bench = {"bench_s": secs}
+    if line is not None:
+        d = line["detail"]
+        print(f"phase9 (e) bench_torch.py: frame {d['frame_s']:.4f} s, "
+              f"{line['value']:.6f} Grays/s fwd+bwd, rays_per_frame "
+              f"{d['rays_per_frame']}, card {d['card']}; {secs:.1f} s in all",
+              flush=True)
+        print(json.dumps(line), flush=True)
+        check("phase9 (e) bench_torch.py rays_per_frame == phase 6's rays_traced",
+              d["rays_per_frame"] == train_rays,
+              f"({d['rays_per_frame']} vs {train_rays})")
+        bench.update(line)
+    rc, out, secs = run_script(["tests_gpu/parity_gate.py"], 600)
+    gate = [ln for ln in out.splitlines() if ln.startswith("PARITY_GATE ")]
+    print(f"phase9 (f) {gate[-1] if gate else 'no PARITY_GATE line'}; exit {rc}; "
+          f"{secs:.1f} s; card {smi}", flush=True)
+    check("phase9 (f) tests_gpu/parity_gate.py exits 0", rc == 0 and bool(gate),
+          f"(exit {rc})")
+    return bench, (json.loads(gate[-1].split(" ", 1)[1]) if gate else None)
+
+
 def frame_numbers(s, frame_sample):
     """The per-frame numbers of a stats dict of `slot_kernel_stats`."""
     return {"ms": s["s_ms"], "plain_ms": s["s_plain_ms"], "max_abs_err": s["s_err"],
@@ -1934,6 +2175,7 @@ def main():
     from spray_tpu_torch.integrators.device import make_render_fn
     from spray_tpu_torch.integrators.wavefront import make_scene_arrays
     from spray_tpu_torch.io.scenes import cornell_box, wisp_cloud
+    from spray_tpu_torch import native
     from spray_tpu_torch.kernels import _build, traverse
     from spray_tpu_torch.kernels.multidomain import (
         MultiDomainClusterIntersector, build_cluster_domains,
@@ -1961,9 +2203,14 @@ def main():
         _, log = _build.build(src.stem)
         return src, log, time.perf_counter() - t0
 
+    def build_native():
+        t0 = time.perf_counter()
+        return native.load(), time.perf_counter() - t0
+
     sources = sorted(_build.CSRC.glob("*.cu"))
     built = {}
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(build_native)
         for src, log, secs in pool.map(build_one, sources):
             report = _build.ptxas_report(log)
             built.update(report)
@@ -1973,6 +2220,9 @@ def main():
                       f"shared memory, {v['stack']} bytes of stack, spill stores "
                       f"{v['spill_stores']} loads {v['spill_loads']} bytes"
                       for k, v in report.items()), flush=True)
+        lib, secs = host.result()
+    print(f"build {native.SRC.name} with g++ into "
+          f"{Path(lib._name).parent.relative_to(ROOT)}: {secs:.2f} s", flush=True)
     blocks_per_sm = {
         k: _build.load("traverse").spray_blocks_per_sm(i)
         for i, k in enumerate(("nearest_kernel", "anyhit_kernel",
@@ -2191,7 +2441,7 @@ def main():
     check_brute_anyhit(torch, np, dev)
     routed, grid_k, routed_launches = phase7_routed(
         torch, np, scene, pages, cam, cfg, isect, img, shadows, dev, smi)
-    del pages, shadows
+    del shadows
     phase_done("phase7 (routed)")
     brute_k, brute_frames, brute_launches = {}, {}, {}
     for tag, bscene in (("cornell", cornell_box()), ("wisp41k", small)):
@@ -2210,11 +2460,30 @@ def main():
     p8 = run_world(phase8_rank, 1, smi, train_ref)[0]
     FAILED.extend(p8["failed"])
     phase_done("phase8 (distributed)")
+
+    # ---- phase 9: native builder, CLI, fit, viewer, bench entry, gate -------
+    import tempfile
+
+    p9_t0 = time.perf_counter()
+    p9 = {"native": phase9_native(np, scene, pages, rays)}
+    del pages
+    with tempfile.TemporaryDirectory() as tmp:
+        p9["cli"] = phase9_cli(tmp, smi)
+        p9["fit"] = phase9_fit(torch, np, small, tmp, dev)
+    p9["viewer"] = phase9_viewer(torch, np, small, dev)
+    p9["bench"], p9["gate"] = phase9_bench_and_gate(train["rays_traced"], smi)
+    p9["phase9_s"] = time.perf_counter() - p9_t0
+    print(f"phase9 took {p9['phase9_s']:.1f} s", flush=True)
+    phase_done("phase9 (native, cli, fit, viewer, bench, gate)")
     by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
                    "train": train_launches[k],
                    "routed_grid": routed_launches[k],
                    "rayshard": p8["launches"]["rayshard"][k],
-                   "insitu": p8["launches"]["insitu"][k]} for k in launches}
+                   "insitu": p8["launches"]["insitu"][k],
+                   **{f"cli_{t}": p9["cli"][t]["launches"][k]
+                      for t in ("one_shot", "ooc", "baseline")},
+                   "fit": p9["fit"]["launches"][k],
+                   "viewer": p9["viewer"]["launches"][k]} for k in launches}
 
     kernels = []
     for kind, name, replaces in (
@@ -2351,7 +2620,8 @@ def main():
                                      "binned": visit_frames["binned"],
                                      "routed_grid": routed,
                                      "brute": brute_frames},
-                      "dist": {k: p8[k] for k in ("rayshard", "insitu", "gate")}}),
+                      "dist": {k: p8[k] for k in ("rayshard", "insitu", "gate")},
+                      "phase9": p9}),
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,6 @@
-"""Frozen render config: a copy of ``spray_tpu.core.config.RenderConfig``."""
+"""The render config: a copy of ``RenderConfig`` of
+``spray_tpu/core/config.py`` (its other dataclasses have no reader there
+and are not copied)."""
 
 from __future__ import annotations
 

@@ -101,10 +101,53 @@ def moller_trumbore(ro, rd, v0, e1, e2):
     return t, u, v, ok
 
 
+class _GatherRows(torch.autograd.Function):
+    """table[idx] for idx in [0, rows): index_select forward; the backward
+    sums each row's gradients as integers held in float64.
+
+    index_select's own backward adds float32 with atomics, in an order that
+    changes from run to run; the backward of advanced indexing sorts the
+    indices and walks each run of one index serially, and a wavefront has
+    runs of hundreds of thousands (every miss lane reads one row), which
+    made it most of a training step.  Here each gradient is scaled by the
+    power of two at which N of the largest magnitude stay below 2^53 and
+    rounded to an integer; float64 adds integers of that size exactly, so
+    the atomics' sum does not depend on their order.  A row's sum is exact in units of max|g| * 2^-(53 - ceil(log2(N + 1)))
+    before one rounding to the table's dtype.  A non-finite gradient
+    anywhere makes the whole table's gradient NaN."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        if idx.numel() == 0:
+            return grad.new_zeros(ctx.table_shape), None
+        g = grad.reshape(grad.shape[0], -1)
+        big = torch.linalg.vector_norm(g, float("inf"))  # inf or NaN: not finite
+        bits = 53 - math.ceil(math.log2(g.shape[0] + 1))
+        scale = torch.exp2((bits - torch.frexp(big).exponent).double())  # big < 2^e
+        acc = torch.zeros((ctx.table_shape[0], g.shape[1]), dtype=torch.float64,
+                          device=g.device)
+        acc.index_add_(0, idx, (g.double() * scale).round_())
+        out = torch.where(torch.isfinite(big), acc.div_(scale).to(g.dtype),
+                          float("nan"))
+        return out.reshape(ctx.table_shape), None
+
+
+def gather_rows(table, idx):
+    """Rows table[idx] of a parameter table, idx in [0, rows), with a
+    deterministic backward (`_GatherRows`)."""
+    return _GatherRows.apply(table, idx)
+
+
 def face_normals(verts, faces):
-    """(F, 3) geometric unit normals.  The vertex gather is index_select,
-    whose backward adds with atomics (see integrators.wavefront.pgather)."""
-    tv = torch.index_select(verts, 0, faces.reshape(-1).long())
+    """(F, 3) geometric unit normals."""
+    tv = gather_rows(verts, faces.reshape(-1).long())
     tv = tv.reshape(faces.shape[0], 3, 3)
     return normalize(cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]))
 

@@ -32,13 +32,9 @@ def scene_offset_eps(scene):
 
 def pgather(table, idx):
     """Rows table[idx] of a parameter table, -1 reading the last row as
-    indexing does.  Gathered with index_select, whose backward adds with
-    atomics: the backward of advanced indexing sorts the indices and walks
-    each run of one index serially, and a wavefront has runs of hundreds of
-    thousands (every miss lane reads row -1, every ray on the floor reads
-    the floor's row), which made it most of the bench training step."""
+    indexing does, with a deterministic backward (`geom.gather_rows`)."""
     idx = idx.long()
-    return torch.index_select(table, 0, torch.where(idx < 0, idx + table.shape[0], idx))
+    return geom.gather_rows(table, torch.where(idx < 0, idx + table.shape[0], idx))
 
 
 def _shade_prep(o, d, hits, normals, eps):
@@ -240,16 +236,20 @@ def make_scene_arrays(scene, device):
     }
 
 
-def render(scene, camera, cfg, intersector, device):
-    """Full frame, one wavefront per sample in plain pixel order, averaged
-    over cfg.spp: the eager loop of host-driven intersectors (the
-    out-of-core scheduler).  Returns the (H, W, 3) image tensor."""
+def render(scene, camera, cfg, intersector, device, pixel_chunk=None):
+    """Full frame, one wavefront per sample in plain pixel order (cut into
+    wavefronts of `pixel_chunk` pixels if given), averaged over cfg.spp:
+    the eager loop of host-driven intersectors (the out-of-core scheduler)
+    and of the oracle.  Returns the (H, W, 3) image tensor."""
     npix = camera.width * camera.height
+    chunk = pixel_chunk or npix
     scene_arrays = make_scene_arrays(scene, device)
-    ids = torch.arange(npix, dtype=torch.int64, device=device)
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=device)
     for s in range(cfg.spp):
-        acc = acc + sample_wavefront(scene_arrays, camera, cfg, intersector,
-                                     s, ids)
+        for c0 in range(0, npix, chunk):
+            ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,
+                               device=device)
+            acc[c0:c0 + ids.shape[0]] += sample_wavefront(
+                scene_arrays, camera, cfg, intersector, s, ids)
     img = acc * (1.0 / cfg.spp)
     return img.reshape(camera.height, camera.width, 3)

@@ -10,6 +10,11 @@ packs those as a (4, 3C) matrix W with component-major column blocks
 
 and t = -ow/dw, u = ou + t du, v = ov + t dv.  Degenerate and padding
 triangles get a transform that never hits (dw = 0).
+
+The transforms and the Morton order come from the native library
+(``spray_tpu_torch/native``), as the reference's do; without g++ the numpy
+fallbacks compute the same formulas and equal it bit for bit, so the pages
+do not depend on whether a compiler exists.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .. import native
 
 CLUSTER = 128  # tris per cluster; the keyed decode packs the row in 7 bits
 
@@ -42,22 +49,38 @@ class ClusterBVH:
         return self.w.shape[0]
 
 
+def _cross(x, y):
+    """Row-wise cross product, each component as builder.cpp's cross3."""
+    return np.stack([x[:, 1] * y[:, 2] - x[:, 2] * y[:, 1],
+                     x[:, 2] * y[:, 0] - x[:, 0] * y[:, 2],
+                     x[:, 0] * y[:, 1] - x[:, 1] * y[:, 0]], axis=-1)
+
+
 def tri_transforms(v0, e1, e2):
     """(T, 4, 3) per-tri affine blocks: rows 0-2 = A (=[e1 e2 n]^-1),
-    row 3 = -A v0.  Degenerate tris -> never-hit transform."""
-    t = len(v0)
-    n = np.cross(e1, e2)
-    m = np.stack([e1, e2, n], axis=-1)  # (T, 3, 3) columns e1,e2,n
-    det = np.linalg.det(m)
-    ok = np.abs(det) > 1e-18
-    m_safe = np.where(ok[:, None, None], m, np.eye(3, dtype=np.float32))
-    a = np.linalg.inv(m_safe)  # (T, 3, 3)
-    trans = -np.einsum("tij,tj->ti", a, v0)
-    out = np.zeros((t, 4, 3), np.float32)
-    out[:, 0:3, :] = np.transpose(a, (0, 2, 1))  # out[:, i, k] = a[k, i]
-    out[:, 3, :] = trans
+    row 3 = -A v0.  Degenerate tris -> never-hit transform.
+
+    builder.cpp's formula in float64, operation for operation: the rows of
+    A are the adjugate's rows (b x c, c x a, a x b) over the determinant,
+    cast to float32 at the end.  It equals the native library bit for bit.
+    (The reference's own fallback inverts in float32 with np.linalg.inv,
+    which rounds differently from its native library; the port does not
+    copy that.)"""
+    a = np.asarray(e1, np.float64)
+    b = np.asarray(e2, np.float64)
+    p = np.asarray(v0, np.float64)
+    c = _cross(a, b)  # unnormalized normal = third column
+    bxc = _cross(b, c)
+    det = a[:, 0] * bxc[:, 0] + a[:, 1] * bxc[:, 1] + a[:, 2] * bxc[:, 2]
+    bad = np.abs(det) < 1e-18
+    out = np.empty((len(a), 4, 3), np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):  # degenerate rows
+        rows = np.stack([bxc, _cross(c, a), c], axis=1) * (1.0 / det)[:, None, None]
+        out[:, 0:3, :] = np.transpose(rows, (0, 2, 1))  # out[:, r, k] = A[k, r]
+        out[:, 3, :] = -(rows[:, :, 0] * p[:, None, 0]
+                         + rows[:, :, 1] * p[:, None, 1]
+                         + rows[:, :, 2] * p[:, None, 2])
     # never-hit for degenerate: A=0, trans=(0,0,1) => O'w=1, D'w=0
-    bad = ~ok
     out[bad] = 0.0
     out[bad, 3, 2] = 1.0
     return out
@@ -75,7 +98,9 @@ def build_clusters(vertices, faces, cluster=CLUSTER):
     ntri = len(tv)
     tlo = tv.min(1)
     thi = tv.max(1)
-    order = _morton_order(tlo, thi)
+    order = native.morton_order(tlo, thi)  # C++ fast path
+    if order is None:
+        order = _morton_order(tlo, thi)
     tp = -(-ntri // cluster) * cluster
     perm = np.concatenate([order, np.full(tp - ntri, -1, np.int64)])
     nc = tp // cluster
@@ -86,7 +111,10 @@ def build_clusters(vertices, faces, cluster=CLUSTER):
     v0 = np.where(valid[:, None], t[:, 0], 0.0).astype(np.float32)
     e1 = np.where(valid[:, None], t[:, 1] - t[:, 0], 0.0).astype(np.float32)
     e2 = np.where(valid[:, None], t[:, 2] - t[:, 0], 0.0).astype(np.float32)
-    tf = tri_transforms(v0, e1, e2).reshape(nc, cluster, 4, 3)
+    tf = native.tri_transforms(v0, e1, e2)  # C++ fast path
+    if tf is None:
+        tf = tri_transforms(v0, e1, e2)
+    tf = tf.reshape(nc, cluster, 4, 3)
     w = np.transpose(tf, (0, 2, 3, 1)).reshape(nc, 4, 3 * cluster)
     ids = np.where(valid, perm, -1).astype(np.int32).reshape(nc, cluster)
 
@@ -237,11 +265,11 @@ def _morton_order(tlo, thi, bits=10):
 
 
 def build_cluster_bvh(vertices, faces, branching=8, num_bins=16,
-                      builder="morton", cluster=CLUSTER):
+                      cluster=CLUSTER):
     """Build the cluster BVH with the Morton cluster builder and an 8-wide
-    SAH tree over the clusters (the only builder of this port so far)."""
-    if builder != "morton":
-        raise NotImplementedError(f"builder {builder!r}: only 'morton' is ported")
+    SAH tree over the clusters.  (The reference's other builders, its
+    triangle-SAH `builder="sah"` and Morton-range `tree="range"`, have no
+    caller there and are not copied.)"""
     w, ids, clo, chi = build_clusters(vertices, faces, cluster)
     bounds, meta = _build_sah_tree(clo, chi, branching, num_bins)
     return ClusterBVH(

@@ -1,5 +1,6 @@
 """spray_tpu_torch core (RNG, geometry, camera, swizzle) == spray_tpu core."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,6 +108,45 @@ def test_moller_trumbore_and_face_normals_match():
     nj = j_geom.face_normals(verts, faces, np)
     nt = t_geom.face_normals(torch.as_tensor(verts), torch.as_tensor(faces))
     np.testing.assert_allclose(nt.numpy(), nj, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["finite", "nonfinite", "zero"])
+def test_gather_rows_backward_is_order_free(case):
+    """gather_rows' backward gives the same bits whatever the order of the
+    lanes, so the card's atomics cannot change them; it equals the exact
+    sum within 1e-6 of the largest row and the reference's gather gradient
+    within float32 summation; a non-finite gradient makes it all NaN."""
+    rs = np.random.RandomState(5)
+    n, rows = 200_000, 64
+    idx = rs.randint(0, rows, n)
+    idx[: n // 2] = rows - 1  # one long run, as every miss lane reads one row
+    w = rs.standard_normal((n, 3)).astype(np.float32) * rs.uniform(
+        0, 1e3, (n, 1)).astype(np.float32)
+    if case == "nonfinite":
+        w[[10, 11, 12], [0, 1, 1]] = [np.inf, np.nan, -np.inf]
+    elif case == "zero":
+        w[:] = 0.0
+
+    def grad(perm):
+        t = torch.zeros(rows, 3, requires_grad=True)
+        out = t_geom.gather_rows(t, torch.as_tensor(idx[perm]))
+        (out * torch.as_tensor(w[perm])).sum().backward()
+        return t.grad.numpy()
+
+    g = grad(np.arange(n))
+    for seed in (1, 2):
+        assert grad(np.random.RandomState(seed).permutation(n)).tobytes() == g.tobytes()
+    if case == "nonfinite":
+        assert np.isnan(g).all()
+        return
+    exact = np.zeros((rows, 3))
+    np.add.at(exact, idx, w.astype(np.float64))
+    jg = np.asarray(jax.grad(lambda t: jnp.sum(t[idx] * w))(jnp.zeros((rows, 3))))
+    scale = max(np.abs(exact).max(), 1e-30)
+    assert np.abs(g - exact).max() <= 1e-6 * scale
+    np.testing.assert_allclose(g, jg, rtol=0, atol=1e-5 * scale)
+    if case == "zero":
+        assert not g.any()
 
 
 @pytest.mark.parametrize("wh", [(16, 16), (512, 512), (100, 37)])

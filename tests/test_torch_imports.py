@@ -43,6 +43,9 @@ def test_port_imports_no_jax():
         assert f"spray_tpu_torch.kernels.{m}" in res["mods"]
     for m in ("rayshard", "epochs", "launch", "dryrun"):
         assert f"spray_tpu_torch.dist.{m}" in res["mods"]
+    for m in ("native", "optim", "cli", "viewer", "oracle", "io.ply",
+              "io.scene_file", "core.image", "parity"):
+        assert f"spray_tpu_torch.{m}" in res["mods"]
     assert res["bad"] == []
 
 
@@ -57,7 +60,7 @@ def test_sources_have_no_jax_import_lines():
                 assert top not in ("jax", "spray_tpu"), f"{f}: {line}"
 
 
-def test_entry_points_require_gpu(monkeypatch):
+def test_entry_points_require_gpu(monkeypatch, tmp_path):
     """device=None means CUDA: with no card they raise, never run on CPU."""
     from spray_tpu_torch.diff import make_diff_render_fn, render_grad
     from spray_tpu_torch.integrators.device import render_device
@@ -74,8 +77,13 @@ def test_entry_points_require_gpu(monkeypatch):
     from spray_tpu_torch.dist.epochs import make_insitu_diff_fn, make_insitu_renderer
     from spray_tpu_torch.dist.launch import run_world
     from spray_tpu_torch.dist.rayshard import make_sharded_render_grad, sharded_render
+    from spray_tpu_torch import cli
+    from spray_tpu_torch.optim import fit
+    from spray_tpu_torch.oracle import render_oracle
+    from spray_tpu_torch.viewer import InteractiveViewer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "img.ppm"
     scene = cornell_box()
     cam = make_camera(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0), up=(0, 1, 0),
                       fov_y_deg=40, width=8, height=8)
@@ -103,9 +111,16 @@ def test_entry_points_require_gpu(monkeypatch):
                  lambda: make_insitu_diff_fn(scene, cam, cfg, device=None),
                  lambda: sharded_render(scene, cam, cfg, device=None),
                  lambda: make_sharded_render_grad(scene, cam, cfg, device=None),
-                 lambda: run_world(print, 1)):
+                 lambda: run_world(print, 1),
+                 lambda: render_oracle(scene, cam, cfg),
+                 lambda: fit(scene, cam, cfg, np.zeros((8, 8, 3)),
+                             {"albedo": scene.albedo}, steps=1),
+                 lambda: InteractiveViewer(scene, cfg, size=8),
+                 lambda: cli.main(["render", "--builtin", "cornell", "--size",
+                                   "8", "-o", str(out)])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    assert not out.exists()  # the CLI raised before it rendered
     img = render(scene, cam, cfg, device="cpu")
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     pipe = make_pipeline(scene, cam, cfg, backward=True, device="cpu")
