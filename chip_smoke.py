@@ -51,7 +51,8 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      camera at spp 1, host-driven render_device through OOCIntersector in
      the reference's two scheduler configurations (8 domains in 8 slots:
      speculate True, 3, False; 64 domains through 8 slots: lookahead on and
-     off): frame time and scheduler counters of each; the five images
+     off), each through bench_torch.suite_row (the suite's own loop):
+     frame time and scheduler counters of each; the five images
      byte-identical and close to the forward path's; the slot kernel and
      the any-hit kernel (one-entry domain lists) timed over every call of
      one config-4 frame against their bounds, and held against their plain
@@ -118,9 +119,18 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      FIT_STEPS steps (the loss falls at every step), the same steps with
      fit(device="cpu") on the same inputs (each loss within FIT_RTOL), and
      the card's run cut at a checkpoint and resumed (the losses bit-equal); (d) InteractiveViewer, two frames
-     and an orbit at 64x64; (e) bench_torch.py --iters 2 as its own
-     process (its JSON line parses, rays_per_frame == phase 6's); (f)
-     tests_gpu/parity_gate.py as its own process (exit 0).
+     and an orbit at 64x64; (e) bench_torch.py --iters 2 --suite as its own
+     process (exit 0, one JSON line, rays_per_frame == phase 6's), and
+     the build/BENCH_extra_torch.json it writes: bench.py's five suite rows
+     and profiling/scaling_curve.py's curve rows with exactly their keys,
+     committed equal in the three config-3 rows, no speculation in
+     config3_baseline, 0 < speculation efficiency <= 1, config4_prefetch's
+     lookahead open (probe above 50 MB/s), the slot and any-hit kernels
+     launched in every row, positive curve times; each row's counters
+     printed beside BENCH_extra.json's; (f)
+     tests_gpu/parity_gate.py as its own process (exit 0); (g)
+     tests_gpu/insitu_gate.py as its own process (exit 0: the in-situ
+     frame within 1e-4 and 3x of the fast path's).
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 9's subprocesses count their own).  The line before the last
 is the kernels JSON (seven kernels); the
@@ -646,12 +656,13 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
     """The speculative epoch scheduler at full size.  Returns (stats of the
     slot kernel and of the one-domain any-hit kernel for the kernels JSON,
     by kind; launch counts of the path)."""
+    from bench_torch import SUITE_VARIANTS, suite_row
     from spray_tpu_torch.core.config import RenderConfig
     from spray_tpu_torch.integrators.device import render_device
     from spray_tpu_torch.kernels import traverse
     from spray_tpu_torch.kernels.multidomain import build_cluster_domains
     from spray_tpu_torch.render import render
-    from spray_tpu_torch.sched.epochs import EpochStats, OOCIntersector
+    from spray_tpu_torch.sched.epochs import OOCIntersector
 
     from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
 
@@ -669,55 +680,29 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
                                                             device=dev))
     ref = render(scene, cam, cfg1, intersector=md8, device=dev)
     ref21 = render(scene, cam, cfg1, intersector=md_isect, device=dev)
-    configs = [
-        ("config3_speculative", 8, dict(speculate=True, lookahead=False)),
-        ("config3_bounded3", 8, dict(speculate=3, lookahead=False)),
-        ("config3_baseline", 8, dict(speculate=False, lookahead=False)),
-        ("config4_prefetch", 64, dict(speculate=True, lookahead=True)),
-        ("config4_noprefetch", 64, dict(speculate=True, lookahead=False)),
-    ]
     images, res = {}, {}
     traverse.reset_launches()
-    for name, nd, kw in configs:
-        oc = OOCIntersector(scene, n_domains=nd, num_slots=8, pages=pages[nd],
-                            device=dev, **kw)
-        t0 = time.perf_counter()
-        render_device(scene, cam, cfg1, intersector=oc, device=dev)
-        warm = time.perf_counter() - t0
-        oc.stats = EpochStats()
-        oc.residency.hits = oc.residency.loads = oc.residency.prefetches = 0
-        times = []
-        for _ in range(SCHED_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            img = render_device(scene, cam, cfg1, intersector=oc, device=dev)
-            times.append(time.perf_counter() - t0)
-        s = oc.stats
-        r = {k: getattr(s, k) / SCHED_TIMED for k in (
-            "epochs", "rays_traced", "rays_speculated", "committed",
-            "domain_loads", "cache_hits", "prefetches")}
-        r.update(frame_s=min(times), warm_s=warm,
-                 speculation_efficiency=s.speculation_efficiency,
-                 lookahead_active=oc.lookahead, probe_mb_s=oc.host_to_hbm_mbps,
-                 grays_per_sec=r["rays_traced"] / min(times) / 1e9)
-        res[name], images[name] = r, img
-        print(f"phase5 {name}: frame {min(times):.4f} s (times "
-              f"{[round(t, 4) for t in times]}, warm-up {warm:.2f} s); per "
-              f"frame: epochs {r['epochs']:g}, activations {r['rays_traced']:g},"
-              f" speculated {r['rays_speculated']:g}, committed "
-              f"{r['committed']:g}, speculation efficiency "
-              f"{r['speculation_efficiency']:.4f}, loads {r['domain_loads']:g},"
-              f" hits {r['cache_hits']:g}, prefetches {r['prefetches']:g}; "
-              f"lookahead {oc.lookahead}, probe {oc.host_to_hbm_mbps} MB/s; "
-              f"card {smi}", flush=True)
+    for name, nd, slots, kw in SUITE_VARIANTS:
+        r, images[name], oc = suite_row(scene, cam, cfg1, nd, slots, dev,
+                                        timed=SCHED_TIMED, pages=pages[nd], **kw)
+        res[name] = r
+        print(f"phase5 {name}: frame {r['frame_s']:.4f} s (times "
+              f"{[round(t, 4) for t in r['frame_times_s']]}, warm-up "
+              f"{r['warm_s']:.2f} s); per frame: epochs {r['epochs']}, "
+              f"activations {r['rays_traced']}, speculated "
+              f"{r['rays_speculated']}, committed {r['committed']}, speculation "
+              f"efficiency {r['speculation_efficiency']:.4f}, loads "
+              f"{r['domain_loads']}, hits {r['cache_hits']}, prefetches "
+              f"{r['prefetches']}; lookahead {r['lookahead_active']}, probe "
+              f"{r['host_to_hbm_mbps']} MB/s; card {smi}", flush=True)
     launches = dict(traverse.launches)
     print(f"phase5: launches over the five configurations {launches}", flush=True)
     for k in ("nearest_slot_kernel", "anyhit_kernel"):
         check(f"phase5 {k} launched on the scheduler path", launches[k] > 0,
               f"({launches[k]})")
-    first = images[configs[0][0]]
+    first = images[SUITE_VARIANTS[0][0]]
     for name, img in images.items():
-        check(f"phase5 {name} image byte-identical to {configs[0][0]}",
+        check(f"phase5 {name} image byte-identical to {SUITE_VARIANTS[0][0]}",
               img.tobytes() == first.tobytes(),
               f"(max abs {float(np.abs(img - first).max()):.3g})")
     # Over the same 8 domains every pixel agrees.  Over the bench's 21
@@ -2085,44 +2070,140 @@ def phase9_viewer(torch, np, scene, dev):
 
 def run_script(cmd, timeout):
     """A script of the checkout run as its own process; returns
-    (exit code, its stdout, seconds)."""
+    (exit code, its stdout, seconds).  Its progress lines (stderr lines
+    that start with '# ') are printed; so is its stderr's tail when it
+    fails."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, capture_output=True,
                           text=True, timeout=timeout)
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("# "):
+            print(f"{cmd[0]} {ln}", flush=True)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr, flush=True)
     return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
+SUITE_REF = ROOT / "BENCH_extra.json"  # the reference's suite (a TPU run)
+SUITE_OUT = ROOT / "build" / "BENCH_extra_torch.json"
+
+
+def suite_keys():
+    """{row: the keys bench.py's suite writes there} (bench_torch.ROW_KEYS,
+    which tests/test_torch_bench_suite.py holds to bench.py's), the keys of
+    profiling/scaling_curve.py's rows (BENCH_extra.json's) and that file."""
+    from bench_torch import ROW_KEYS, SUITE_VARIANTS
+
+    ref = json.loads(SUITE_REF.read_text())
+    rows = {v[0]: set(ROW_KEYS[v[0].split("_")[0]]) for v in SUITE_VARIANTS}
+    return rows, set(ref["scaling_cpu_mesh"]["1"]), ref
+
+
+def check_suite(extra, smi):
+    """(e) The suite's JSON: the reference's rows and keys, its counters
+    beside BENCH_extra.json's (read-only: that file's times are the TPU's),
+    the scheduler's invariants and the lookahead open above the gate's
+    threshold (sched/epochs.py's PROBE_MB_S)."""
+    from spray_tpu_torch.sched.epochs import PROBE_MB_S
+
+    rows, curve_keys, ref = suite_keys()
+    for name, keys in rows.items():
+        got = extra.get(name)
+        check(f"phase9 (e) suite row {name} has bench.py's keys",
+              got is not None and set(got) == keys,
+              f"({sorted(got) if got else None})")
+        if got is None:
+            continue
+        pairs = ", ".join(f"{k} {got[k]} (TPU {ref[name][k]})"
+                          for k in ref[name] if k not in ("frame_s", "warm_s",
+                                                          "grays_per_sec"))
+        launches = extra.get("launches", {}).get(name, {})
+        print(f"phase9 (e) suite {name}: frame {got['frame_s']:.4f} s, warm-up "
+              f"{got['warm_s']:.3f} s; {pairs}"
+              + (f"; lookahead {got['lookahead_active']}, probe "
+                 f"{got['host_to_hbm_mbps']} MB/s" if "prefetches" in got else "")
+              + f"; launches a frame {launches}; card {smi}", flush=True)
+        eff = got["speculation_efficiency"]
+        check(f"phase9 (e) suite {name}: 0 < speculation_efficiency <= 1",
+              0 < eff <= 1, f"({eff})")
+        for k in ("nearest_slot_kernel", "anyhit_kernel"):
+            check(f"phase9 (e) suite {name}: {k} launched", launches.get(k, 0) > 0,
+                  f"({launches.get(k)} a frame)")
+    c3 = [extra[k]["committed"] for k in rows
+          if k.startswith("config3") and k in extra]
+    check("phase9 (e) suite: committed equal in the three config-3 rows",
+          len(c3) == 3 and len(set(c3)) == 1, f"({c3})")
+    base = extra.get("config3_baseline", {})
+    check("phase9 (e) suite: config3_baseline speculated nothing",
+          base.get("speculated") == 0, f"({base.get('speculated')})")
+    pre = extra.get("config4_prefetch", {})
+    mbps = pre.get("host_to_hbm_mbps")
+    check(f"phase9 (e) suite: config4_prefetch lookahead on (probe above "
+          f"{PROBE_MB_S:g} MB/s)", pre.get("lookahead_active") is True
+          and mbps is not None and mbps > PROBE_MB_S,
+          f"({pre.get('lookahead_active')}, {mbps} MB/s, "
+          f"{pre.get('prefetches')} prefetches)")
+    curve = extra.get("scaling_cpu_mesh") or {}
+    check("phase9 (e) suite: the curve has rows", bool(curve), f"({list(curve)})")
+    for n, row in curve.items():
+        times = [v for k, v in row.items() if k.endswith("_s")]
+        check(f"phase9 (e) curve world {n}: scaling_curve.py's keys, times > 0",
+              set(row) == curve_keys and len(times) == 4
+              and all(t > 0 for t in times), f"({row})")
+        print(f"phase9 (e) curve world {n} (gloo CPU ranks on the card's host): "
+              f"{row}", flush=True)
+    print(f"phase9 (e) suite {extra.get('suite_s', 0):.1f} s, curve "
+          f"{extra.get('curve_s', 0):.1f} s; suite card: {extra.get('card')}",
+          flush=True)
+
+
 def phase9_bench_and_gate(train_rays, smi):
-    """(e) bench_torch.py --iters 2 and (f) tests_gpu/parity_gate.py, each
-    as its own process."""
-    rc, out, secs = run_script(["bench_torch.py", "--iters", "2"], 600)
+    """(e) bench_torch.py --iters 2 --suite, (f) tests_gpu/parity_gate.py and
+    (g) tests_gpu/insitu_gate.py, each as its own process."""
+    SUITE_OUT.unlink(missing_ok=True)
+    rc, out, secs = run_script(["bench_torch.py", "--iters", "2", "--suite"], 900)
+    lines = out.strip().splitlines()
     try:
-        line = json.loads(out.strip().splitlines()[-1])
+        line = json.loads(lines[-1])
     except (IndexError, json.JSONDecodeError):
         line = None
-    check("phase9 (e) bench_torch.py exits 0 and its last line parses",
-          rc == 0 and line is not None, f"(exit {rc})")
+    check("phase9 (e) bench_torch.py --suite exits 0 and prints one JSON line",
+          rc == 0 and line is not None and len(lines) == 1,
+          f"(exit {rc}, {len(lines)} lines)")
     bench = {"bench_s": secs}
     if line is not None:
         d = line["detail"]
         print(f"phase9 (e) bench_torch.py: frame {d['frame_s']:.4f} s, "
               f"{line['value']:.6f} Grays/s fwd+bwd, rays_per_frame "
-              f"{d['rays_per_frame']}, card {d['card']}; {secs:.1f} s in all",
-              flush=True)
+              f"{d['rays_per_frame']}, card {d['card']}; suite {d.get('suite')}; "
+              f"{secs:.1f} s in all with the suite and the curve", flush=True)
         print(json.dumps(line), flush=True)
         check("phase9 (e) bench_torch.py rays_per_frame == phase 6's rays_traced",
               d["rays_per_frame"] == train_rays,
               f"({d['rays_per_frame']} vs {train_rays})")
         bench.update(line)
+    extra = json.loads(SUITE_OUT.read_text()) if SUITE_OUT.exists() else {}
+    check(f"phase9 (e) {SUITE_OUT.relative_to(ROOT)} written", bool(extra))
+    if extra:
+        check_suite(extra, smi)
+    bench["suite"] = extra
     rc, out, secs = run_script(["tests_gpu/parity_gate.py"], 600)
     gate = [ln for ln in out.splitlines() if ln.startswith("PARITY_GATE ")]
     print(f"phase9 (f) {gate[-1] if gate else 'no PARITY_GATE line'}; exit {rc}; "
           f"{secs:.1f} s; card {smi}", flush=True)
     check("phase9 (f) tests_gpu/parity_gate.py exits 0", rc == 0 and bool(gate),
           f"(exit {rc})")
-    return bench, (json.loads(gate[-1].split(" ", 1)[1]) if gate else None)
+    rc, out, secs = run_script(["tests_gpu/insitu_gate.py"], 600)
+    ins = [ln for ln in out.splitlines() if ln.startswith("INSITU_GATE ")]
+    insitu = json.loads(ins[-1].split(" ", 1)[1]) if ins else None
+    print(f"phase9 (g) {ins[-1] if ins else 'no INSITU_GATE line'}; exit {rc}; "
+          f"{secs:.1f} s; card {smi}", flush=True)
+    check("phase9 (g) tests_gpu/insitu_gate.py exits 0 (image within 1e-4, "
+          "within 3x of the fast path)", rc == 0 and insitu is not None
+          and insitu["ok"], f"(exit {rc})")
+    if insitu is not None:
+        insitu["gate_s"] = secs
+    return bench, (json.loads(gate[-1].split(" ", 1)[1]) if gate else None), insitu
 
 
 def frame_numbers(s, frame_sample):
@@ -2471,7 +2552,8 @@ def main():
         p9["cli"] = phase9_cli(tmp, smi)
         p9["fit"] = phase9_fit(torch, np, small, tmp, dev)
     p9["viewer"] = phase9_viewer(torch, np, small, dev)
-    p9["bench"], p9["gate"] = phase9_bench_and_gate(train["rays_traced"], smi)
+    p9["bench"], p9["gate"], p9["insitu_gate"] = phase9_bench_and_gate(
+        train["rays_traced"], smi)
     p9["phase9_s"] = time.perf_counter() - p9_t0
     print(f"phase9 took {p9['phase9_s']:.1f} s", flush=True)
     phase_done("phase9 (native, cli, fit, viewer, bench, gate)")

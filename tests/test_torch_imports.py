@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import bench_torch
 import spray_tpu_torch
 from spray_tpu_torch.core.camera import make_camera
 from spray_tpu_torch.core.config import RenderConfig
 from spray_tpu_torch.io.scenes import cornell_box
+from tests_gpu import insitu_gate
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -41,7 +43,7 @@ def test_port_imports_no_jax():
     assert "spray_tpu_torch.diff" in res["mods"]
     for m in ("brute", "binned", "sweep"):
         assert f"spray_tpu_torch.kernels.{m}" in res["mods"]
-    for m in ("rayshard", "epochs", "launch", "dryrun"):
+    for m in ("rayshard", "epochs", "launch", "dryrun", "scaling"):
         assert f"spray_tpu_torch.dist.{m}" in res["mods"]
     for m in ("native", "optim", "cli", "viewer", "oracle", "io.ply",
               "io.scene_file", "core.image", "parity"):
@@ -50,7 +52,8 @@ def test_port_imports_no_jax():
 
 
 def test_sources_have_no_jax_import_lines():
-    files = [ROOT / "chip_smoke.py"] + sorted(
+    files = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + sorted(
+        (ROOT / "tests_gpu").glob("*.py")) + sorted(
         Path(spray_tpu_torch.__file__).parent.rglob("*.py"))
     for f in files:
         for line in f.read_text().splitlines():
@@ -78,6 +81,7 @@ def test_entry_points_require_gpu(monkeypatch, tmp_path):
     from spray_tpu_torch.dist.launch import run_world
     from spray_tpu_torch.dist.rayshard import make_sharded_render_grad, sharded_render
     from spray_tpu_torch import cli
+    from spray_tpu_torch.dist.scaling import curve, main as curve_main
     from spray_tpu_torch.optim import fit
     from spray_tpu_torch.oracle import render_oracle
     from spray_tpu_torch.viewer import InteractiveViewer
@@ -117,7 +121,12 @@ def test_entry_points_require_gpu(monkeypatch, tmp_path):
                              {"albedo": scene.albedo}, steps=1),
                  lambda: InteractiveViewer(scene, cfg, size=8),
                  lambda: cli.main(["render", "--builtin", "cornell", "--size",
-                                   "8", "-o", str(out)])):
+                                   "8", "-o", str(out)]),
+                 lambda: curve(world_sizes=(1,)),
+                 lambda: curve_main([]),
+                 lambda: insitu_gate.gate(scene, cam, cfg),
+                 lambda: insitu_gate.main([]),
+                 lambda: bench_torch.main(["--suite", "--size", "8"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert not out.exists()  # the CLI raised before it rendered

@@ -15,7 +15,6 @@ of the in-situ frame and checks it against a single-process render; prints
 
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -122,56 +121,17 @@ def epochs_rank(rank, world_size):
     return out
 
 
-def _best(fn, iters=3):
-    """Least seconds of fn() over iters calls after a warm-up, every rank
-    starting each call together."""
-    fn()
-    ts = []
-    for _ in range(iters):
-        torch.distributed.barrier()
-        t0 = time.perf_counter()
-        fn()
-        ts.append(time.perf_counter() - t0)
-    return min(ts)
+SCALING_SCENE = dict(n_blobs=4, tris_per_blob=512, seed=5)  # tests/test_scaling.py's
 
 
 def scaling_rank(rank, world_size):
     """Weak scaling of the ray-sharded step: (t_independent, t_distributed)
-    of this rank, measured back to back.  Independent: the step's own work
-    on this rank's tile alone (render, loss and the vertex and albedo
-    gradients through the same detached intersector), no collective;
-    distributed: the same tile through make_sharded_render_grad, the
-    gradients all-reduced."""
-    from spray_tpu_torch.bvh.traverse import BVHIntersector
-    from spray_tpu_torch.diff import (
-        DetachedIntersector, diff_scene_arrays, grads_of, scene_consts,
-    )
-    from spray_tpu_torch.integrators import wavefront
+    of this rank, measured back to back by the scaling curve's own body
+    (`spray_tpu_torch.dist.scaling.rayshard_times`), on the reference
+    test's scene with 3 timed calls of each."""
+    from spray_tpu_torch.dist.scaling import rayshard_times
 
-    scene = wisp_cloud(n_blobs=4, tris_per_blob=512, seed=5)
-    cfg = RenderConfig(spp=1, bounces=1, integrator="pt", seed=0)
-    cam = make_camera(eye=(10.0, 8.0, 14.0), lookat=(0, 0, 0), up=(0, 1, 0),
-                      fov_y_deg=45, width=64, height=32 * world_size)
-    isect = BVHIntersector(scene, device=CPU)
-    consts = scene_consts(scene, CPU)
-    ids, npix = rayshard.padded_pixel_ids(cam, world_size)
-    per = len(ids) // world_size
-    pix = torch.as_tensor(ids[rank * per:(rank + 1) * per].astype(np.int64))
-    params = scene_params(scene)
-    w = torch.tensor([0.4, 0.8, 1.3])
-
-    def tile_grad():
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        arrays, vertices, faces = diff_scene_arrays(scene, p, consts)
-        rad = wavefront.sample_wavefront(
-            arrays, cam, cfg, DetachedIntersector(isect, vertices, faces), 0,
-            pix)
-        loss = torch.sum(rad * w) / float(npix * 3)
-        return loss.detach(), grads_of(loss, p)
-
-    step = rayshard.make_sharded_render_grad(
-        scene, cam, cfg, make_intersector=lambda s: isect, device=CPU)
-    return _best(tile_grad), _best(lambda: step(params, ids))
+    return rayshard_times(rank, world_size, SCALING_SCENE, iters=3)
 
 
 def _main():
