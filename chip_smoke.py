@@ -130,7 +130,17 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      printed beside BENCH_extra.json's; (f)
      tests_gpu/parity_gate.py as its own process (exit 0); (g)
      tests_gpu/insitu_gate.py as its own process (exit 0: the in-situ
-     frame within 1e-4 and 3x of the fast path's).
+     frame within 1e-4 and 3x of the fast path's);
+ 10. the form of the frame, which make_render_fn chooses from the card's
+     free memory, on the phase-4 frame (512x512, spp 4) through the
+     default intersector: (a) with the card's free memory it takes the
+     batched form (peak within RAY_BYTES a ray); (b) with a ballast tensor
+     leaving half of what the batched wavefront needs, the per-sample
+     form, one wavefront a sample: frame time, peak memory and launches of
+     each, the images within 1e-6 and rays_traced equal; (c) one
+     per-sample frame's calls of nearest_kernel and anyhit_kernel timed
+     against their bounds, the last sample's held against the plain
+     versions and walk_reference as in phase 4.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 9's subprocesses count their own).  The line before the last
 is the kernels JSON (seven kernels); the
@@ -2206,6 +2216,225 @@ def phase9_bench_and_gate(train_rays, smi):
     return bench, (json.loads(gate[-1].split(" ", 1)[1]) if gate else None), insitu
 
 
+PHASE10_TIMED = 3  # fenced frames of each phase-10 form, the least taken
+SPP_RTOL = 1e-6  # per-sample against batched image: the reference test's bar
+
+
+def spp_frames(torch, tag, fn, arrays):
+    """PHASE10_TIMED fenced frames of `fn` after a warm-up, with the launch
+    counts set to 0 just before and read just after: (image, numbers)."""
+    fn(arrays)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(PHASE10_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays = fn(arrays)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: frame times {[round(t, 4) for t in times]} s, min "
+          f"{min(times):.4f} s; rays_traced {int(rays)}; peak memory "
+          f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB allocated before); launches a frame "
+          f"nearest_kernel {launches['nearest_kernel'] / PHASE10_TIMED:g}, "
+          f"anyhit_kernel {launches['anyhit_kernel'] / PHASE10_TIMED:g}",
+          flush=True)
+    for k in ("nearest_kernel", "anyhit_kernel"):
+        check(f"{tag}: {k} launched", launches[k] > 0,
+              f"({launches[k]} in {PHASE10_TIMED} frames)")
+    return img, {"frame_s": min(times), "frame_times_s": times,
+                 "rays_traced": int(rays), "peak_gib": peak / 2**30,
+                 "allocated_before_gib": base / 2**30,
+                 "frame_peak_bytes": peak - base, "launches": launches,
+                 "timed_frames": PHASE10_TIMED}
+
+
+def phase10_spp(torch, np, scene, pages, cam, cfg, dev, smi):
+    """make_render_fn's choice of form, on the bench frame through the
+    default multi-domain intersector.  (a) With the card's free memory the
+    default takes the batched form; its peak above what was allocated
+    before the frame stays within RAY_BYTES a ray.  (b) With a ballast
+    tensor leaving free half of what the batched wavefront needs, the
+    default takes the per-sample form, which renders there: image within
+    SPP_RTOL of (a)'s, rays_traced equal.  (c) One per-sample frame's
+    nearest and any-hit calls (once per sample) through main_call_stats,
+    the last sample's calls held against the plain versions and
+    walk_reference.  Frame time, peak memory and launches of each form."""
+    from spray_tpu_torch.core.device import free_bytes
+    from spray_tpu_torch.integrators import device as tdev
+    from spray_tpu_torch.integrators.wavefront import make_scene_arrays
+    from spray_tpu_torch.kernels import traverse
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+
+    isect = MultiDomainClusterIntersector.from_pages(scene, pages, device=dev)
+    arrays = make_scene_arrays(scene, dev)
+    npix = cam.width * cam.height
+    rays_batched = npix * cfg.spp
+    need = rays_batched * tdev.RAY_BYTES
+    out, imgs = {"card": smi, "routed": isect.routed}, {}
+    torch.cuda.synchronize()
+    free = free_bytes(dev)
+    crossover = free // (npix * tdev.RAY_BYTES)
+    print(f"phase10 (a) free memory {free / 2**30:.3f} GiB: the batched form "
+          f"fits up to {free // tdev.RAY_BYTES} rays at {tdev.RAY_BYTES} B a "
+          f"ray, spp {crossover} at {cam.width}x{cam.height}; card {smi}",
+          flush=True)
+    fn = tdev.make_render_fn(scene, cam, cfg, isect, with_stats=True, device=dev)
+    check(f"phase10 (a) the default takes the batched form with "
+          f"{free / 2**30:.3f} GiB free", fn.spp_batch is True,
+          f"(needs {need / 2**30:.3f} GiB)")
+    imgs["batched"], out["batched"] = spp_frames(
+        torch, "phase10 (a) batched form (chosen)", fn, arrays)
+    per_ray = out["batched"]["frame_peak_bytes"] / rays_batched
+    check(f"phase10 (a) batched peak within RAY_BYTES a ray",
+          per_ray <= tdev.RAY_BYTES,
+          f"({per_ray:.1f} B a ray against {tdev.RAY_BYTES})")
+    out.update(free_gib=free / 2**30, ray_bytes=tdev.RAY_BYTES,
+               batched_bytes_a_ray=per_ray, crossover_spp=int(crossover))
+    del fn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # hand the allocator's unused blocks back to CUDA
+    ballast = torch.empty(max(free_bytes(dev) - need // 2, 0),
+                          dtype=torch.uint8, device=dev)
+    left = free_bytes(dev)
+    fn = tdev.make_render_fn(scene, cam, cfg, isect, with_stats=True, device=dev)
+    check(f"phase10 (b) the default takes the per-sample form with "
+          f"{left / 2**30:.3f} GiB free", fn.spp_batch is False,
+          f"(the batched form needs {need / 2**30:.3f} GiB)")
+    imgs["per_sample"], out["per_sample"] = spp_frames(
+        torch, f"phase10 (b) per-sample form (chosen, {left / 2**30:.3f} GiB "
+        "free)", fn, arrays)
+    out["per_sample"]["free_gib"] = left / 2**30
+    del fn, ballast
+    torch.cuda.empty_cache()
+
+    a, b = imgs["batched"], imgs["per_sample"]
+    far = ~torch.isclose(b, a, atol=SPP_RTOL, rtol=SPP_RTOL)
+    check(f"phase10 (b) per-sample image ~ batched image (atol {SPP_RTOL}, "
+          f"rtol {SPP_RTOL})", not bool(far.any()),
+          f"(max abs {float((a - b).abs().max()):.3g}, "
+          f"{int(far.any(dim=2).sum())} pixels outside, mean "
+          f"{float(b.mean()):.6f})")
+    check("phase10 (b) per-sample rays_traced == batched",
+          out["per_sample"]["rays_traced"] == out["batched"]["rays_traced"],
+          f"({out['per_sample']['rays_traced']} vs "
+          f"{out['batched']['rays_traced']})")
+    check("phase10 (b) images finite and nonzero",
+          bool(torch.isfinite(b).all()) and float(b.mean()) > 0)
+    del imgs, a, b
+
+    # the recorded inputs outgrow the ballast: the per-sample form is
+    # picked by reporting no free memory instead
+    rec = Recorder(isect)
+    saved, tdev.free_bytes = tdev.free_bytes, lambda device: 0
+    fn = tdev.make_render_fn(scene, cam, cfg, rec, device=dev)
+    tdev.free_bytes = saved
+    check("phase10 (c) with no free memory reported, the per-sample form",
+          fn.spp_batch is False)
+    fn(arrays)
+    torch.cuda.synchronize()
+    del fn
+    per = len(rec.calls) // cfg.spp
+    check("phase10 (c) each sample makes the same number of trace calls",
+          per * cfg.spp == len(rec.calls), f"({len(rec.calls)} calls)")
+    st = main_call_stats(torch, np, traverse, isect, rec.calls,
+                         "phase10 (c) per-sample frame",
+                         checked=set(range(len(rec.calls) - per, len(rec.calls))))
+    del rec
+    for kind, name in (("nearest", "nearest_kernel"), ("anyhit", "anyhit_kernel")):
+        k = st[kind]
+        fb, fby = bound_of(k["ops_ms"], k["bytes_ms"])
+        sb, sby = bound_of(k["s_ops_ms"], k["s_bytes_ms"])
+        print(f"phase10 (c) per-sample frame {name}: {k['ms']:.3f} ms in "
+              f"{k['calls']} launches, {int(k['counts'][2])} tri tests, bound "
+              f"{fb:.4f} ms ({fby}); samples ({k['s_rays']} rays over "
+              f"{k['s_calls']} calls) {k['s_ms']:.3f} ms vs plain "
+              f"{k['s_plain_ms']:.3f} ms, bound {sb:.4f} ms ({sby}), max abs "
+              f"err {k['s_err']:.3g}; card {smi}", flush=True)
+        check(f"phase10 (c) per-sample {name} held against its plain version",
+              k["s_calls"] > 0, f"({k['s_calls']} calls)")
+        out[name] = {"ms": k["s_ms"], "plain_ms": k["s_plain_ms"],
+                     "max_abs_err": k["s_err"], "bound_ms": sb, "bound_by": sby,
+                     "frame_ms": k["ms"], "frame_bound_ms": fb,
+                     "frame_bound_by": fby, "frame_launches": k["calls"],
+                     "frame_tri_tests": int(k["counts"][2]),
+                     "sample": f"{SAMPLE_PACKETS} live packets of each call of "
+                               f"the last sample of one per-sample frame "
+                               f"({k['s_rays']} rays), full pages"}
+    return out
+
+
+def main_call_stats(torch, np, traverse, isect, calls, tag, checked=None):
+    """The nearest and any-hit calls of one frame through the multi-domain
+    intersector `isect`, recorded by Recorder: every call's kernel timed
+    against its bound (node visits and tri tests counted on the call); the
+    calls whose index is in `checked` (default: every call) held on
+    SAMPLE_PACKETS live packets against the plain version, and on their
+    middle packet against walk_reference bit for bit with the counts, with
+    the one-entry-list designs checked too when every call is.  Returns
+    sums by kind: ms, bound parts and counts over every call; s_* over the
+    checked calls' samples."""
+    dev = isect.w.device
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    pages = tuple(x.cpu() for x in (isect.bounds, isect.meta, isect.w))
+    keys = ("ms", "bound_ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms",
+            "s_ops_ms", "s_bytes_ms", "s_err")
+    stats = {k: {**dict.fromkeys(keys, 0.0), "calls": 0, "s_calls": 0,
+                 "s_rays": 0, "counts": np.zeros(3)} for k in ("nearest", "anyhit")}
+    for i, (kind, wo, wd, wmin, wmax) in enumerate(calls):
+        args, _ = isect._args(wo, wd, wmin, wmax)
+        counters.zero_()
+        run_kernel(traverse, kind, args, counters)
+        cnt = counters.cpu().numpy().astype(np.float64)
+        ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, args))
+        parts = bound_parts(torch, kind, args, cnt)
+        bms, by = bound_of(*parts)
+        live = int((wmax > 0).sum())
+        s = stats[kind]
+        for key, val in (("ms", ms), ("ops_ms", parts[0]), ("bytes_ms", parts[1]),
+                         ("bound_ms", bms)):
+            s[key] += val
+        s["calls"] += 1
+        s["counts"] += cnt
+        line = (f"{tag} call {i} {kind}: {live} live rays, {int(cnt[0])} node "
+                f"visits, {int(cnt[1])} leaf visits, {int(cnt[2])} tri tests; "
+                f"{ms:.3f} ms vs bound {bms:.4f} ms ({by})")
+        if checked is not None and i not in checked:
+            print(line, flush=True)
+            continue
+        # the kernel against its plain version on a sample of this call
+        sub = sample_packets(torch, args, SAMPLE_PACKETS)
+        counters.zero_()
+        run_kernel(traverse, kind, sub, counters)
+        s_cnt = counters.cpu().numpy().astype(np.float64)
+        got = run_kernel(traverse, kind, sub)
+        ref, s_plain_ms = timed_once(torch, lambda: run_plain(traverse, kind, sub))
+        n_pk = sub[0].shape[0]
+        err = compare_raw(f"{tag} call {i} {kind} kernel~plain on {n_pk} "
+                          "main-path packets", kind, ref, got)
+        check_walk(torch, traverse, f"{tag} call {i} full lists", kind,
+                   pick_packets(torch, sub, middle(torch, n_pk, dev)), pages)
+        if checked is None:
+            check_designs(torch, traverse, f"{tag} call {i}", kind, sub, pages)
+        s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
+        s_parts = bound_parts(torch, kind, sub, s_cnt)
+        print(f"{line}; sample of {n_pk} packets {s_ms:.3f} ms vs plain "
+              f"{s_plain_ms:.3f} ms", flush=True)
+        for key, val in (("s_ms", s_ms), ("s_plain_ms", s_plain_ms),
+                         ("s_ops_ms", s_parts[0]), ("s_bytes_ms", s_parts[1])):
+            s[key] += val
+        s["s_err"] = max(s["s_err"], err)
+        s["s_rays"] += sub[1].shape[0]
+        s["s_calls"] += 1
+    return stats
+
+
 def frame_numbers(s, frame_sample):
     """The per-frame numbers of a stats dict of `slot_kernel_stats`."""
     return {"ms": s["s_ms"], "plain_ms": s["s_plain_ms"], "max_abs_err": s["s_err"],
@@ -2454,52 +2683,9 @@ def main():
     fn = make_render_fn(scene, cam, cfg, rec, with_stats=True, device=dev)
     fn(make_scene_arrays(scene, dev))
     torch.cuda.synchronize()
-    counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    bench_pages = tuple(x.cpu() for x in (isect.bounds, isect.meta, isect.w))
-    keys = ("ms", "bound_ms", "ops_ms", "bytes_ms", "s_ms", "s_plain_ms",
-            "s_ops_ms", "s_bytes_ms", "s_err")
-    stats = {k: {**dict.fromkeys(keys, 0.0), "calls": 0, "s_rays": 0,
-                 "counts": np.zeros(3)} for k in ("nearest", "anyhit")}
-    for i, (kind, wo, wd, wmin, wmax) in enumerate(rec.calls):
-        args, _ = isect._args(wo, wd, wmin, wmax)
-        counters.zero_()
-        run_kernel(traverse, kind, args, counters)
-        cnt = counters.cpu().numpy().astype(np.float64)
-        ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, args))
-        parts = bound_parts(torch, kind, args, cnt)
-        bms, by = bound_of(*parts)
-        live = int((wmax > 0).sum())
-        # the kernel against its plain version on a sample of this call
-        sub = sample_packets(torch, args, SAMPLE_PACKETS)
-        counters.zero_()
-        run_kernel(traverse, kind, sub, counters)
-        s_cnt = counters.cpu().numpy().astype(np.float64)
-        got = run_kernel(traverse, kind, sub)
-        ref, s_plain_ms = timed_once(torch, lambda: run_plain(traverse, kind, sub))
-        n_pk = sub[0].shape[0]
-        err = compare_raw(f"phase4 call {i} {kind} kernel~plain on {n_pk} "
-                          "main-path packets", kind, ref, got)
-        check_walk(torch, traverse, f"phase4 call {i} full lists", kind,
-                   pick_packets(torch, sub, middle(torch, n_pk, dev)), bench_pages)
-        check_designs(torch, traverse, f"phase4 call {i}", kind, sub, bench_pages)
-        s_ms = cuda_ms(torch, lambda: run_kernel(traverse, kind, sub))
-        s_parts = bound_parts(torch, kind, sub, s_cnt)
-        print(f"phase4 call {i} {kind}: {live} live rays, {int(cnt[0])} node "
-              f"visits, {int(cnt[1])} leaf visits, {int(cnt[2])} tri tests; "
-              f"{ms:.3f} ms vs bound {bms:.4f} ms ({by}); sample of {n_pk} "
-              f"packets {s_ms:.3f} ms vs plain {s_plain_ms:.3f} ms", flush=True)
-        s = stats[kind]
-        for key, val in (("ms", ms), ("ops_ms", parts[0]), ("bytes_ms", parts[1]),
-                         ("bound_ms", bms), ("s_ms", s_ms),
-                         ("s_plain_ms", s_plain_ms), ("s_ops_ms", s_parts[0]),
-                         ("s_bytes_ms", s_parts[1])):
-            s[key] += val
-        s["s_err"] = max(s["s_err"], err)
-        s["s_rays"] += sub[1].shape[0]
-        s["calls"] += 1
-        s["counts"] += cnt
+    stats = main_call_stats(torch, np, traverse, isect, rec.calls, "phase4")
     shadows = [c for c in rec.calls if c[0] == "anyhit"]
-    del rec, bench_pages
+    del rec
 
     phase_done("phase4 (forward frame)")
 
@@ -2547,7 +2733,6 @@ def main():
 
     p9_t0 = time.perf_counter()
     p9 = {"native": phase9_native(np, scene, pages, rays)}
-    del pages
     with tempfile.TemporaryDirectory() as tmp:
         p9["cli"] = phase9_cli(tmp, smi)
         p9["fit"] = phase9_fit(torch, np, small, tmp, dev)
@@ -2557,6 +2742,11 @@ def main():
     p9["phase9_s"] = time.perf_counter() - p9_t0
     print(f"phase9 took {p9['phase9_s']:.1f} s", flush=True)
     phase_done("phase9 (native, cli, fit, viewer, bench, gate)")
+
+    # ---- phase 10: the form of the frame, chosen by free memory -----------
+    p10 = phase10_spp(torch, np, scene, pages, cam, cfg, dev, smi)
+    del pages
+    phase_done("phase10 (batched and per-sample frames)")
     by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
                    "train": train_launches[k],
                    "routed_grid": routed_launches[k],
@@ -2565,7 +2755,10 @@ def main():
                    **{f"cli_{t}": p9["cli"][t]["launches"][k]
                       for t in ("one_shot", "ooc", "baseline")},
                    "fit": p9["fit"]["launches"][k],
-                   "viewer": p9["viewer"]["launches"][k]} for k in launches}
+                   "viewer": p9["viewer"]["launches"][k],
+                   **{f"phase10_{t}": p10[t]["launches"][k]
+                      for t in ("batched", "per_sample")}}
+               for k in launches}
 
     kernels = []
     for kind, name, replaces in (
@@ -2617,6 +2810,9 @@ def main():
                                                "in-situ 512x512")}
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        p8["stats"]["anyhit"]["s_err"])
+        entry["per_sample"] = {
+            "launches": p10["per_sample"]["launches"][name], **p10[name]}
+        entry["max_abs_err"] = max(entry["max_abs_err"], p10[name]["max_abs_err"])
         kernels.append(entry)
     kernels.append({
         "name": "nearest_slot_kernel", "route": "cuda",
@@ -2703,7 +2899,7 @@ def main():
                                      "routed_grid": routed,
                                      "brute": brute_frames},
                       "dist": {k: p8[k] for k in ("rayshard", "insitu", "gate")},
-                      "phase9": p9}),
+                      "phase9": p9, "phase10": p10}),
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

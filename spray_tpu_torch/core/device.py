@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -15,3 +17,14 @@ def resolve_device(device=None):
             "the plain PyTorch versions of the kernels)"
         )
     return dev
+
+
+def free_bytes(device):
+    """Bytes that new tensors on `device` can surely take now: on a card,
+    the free memory CUDA reports (`torch.cuda.mem_get_info`; what torch's
+    caching allocator holds unused is not counted: it may be split among
+    blocks still partly in use); on the host, its free physical memory."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -148,12 +148,8 @@ def make_diff_render_fn(scene, camera, cfg, make_intersector=None,
                 arrays, camera, cfg, intersector, smp, pix, with_stats=True)
             acc = rad.reshape(npix, spp, 3).sum(dim=1)
         else:
-            acc, nrays = 0.0, 0
-            for s in range(spp):
-                rad, nr = wavefront.sample_wavefront(
-                    arrays, camera, cfg, intersector, s, pids,
-                    with_stats=True)
-                acc, nrays = acc + rad, nrays + nr
+            acc, nrays = wavefront.sample_sum(arrays, camera, cfg,
+                                              intersector, pids, spp)
         img = (acc[inv] * (1.0 / spp)).reshape(camera.height, camera.width, 3)
         return (img, nrays) if with_stats else img
 

@@ -236,6 +236,20 @@ def make_scene_arrays(scene, device):
     }
 
 
+def sample_sum(scene_arrays, camera, cfg, intersector, pixel_ids, spp):
+    """Radiance of `pixel_ids` summed over samples 0..spp-1, one wavefront a
+    sample, added in sample order into one float32 accumulator (the
+    reference's scan over samples): (acc (N, 3), rays_traced).  The
+    per-sample form of `device.make_render_fn`, `diff.make_diff_render_fn`
+    and `render`."""
+    acc, nrays = 0.0, 0
+    for s in range(spp):
+        rad, nr = sample_wavefront(scene_arrays, camera, cfg, intersector, s,
+                                   pixel_ids, with_stats=True)
+        acc, nrays = acc + rad, nrays + nr
+    return acc, nrays
+
+
 def render(scene, camera, cfg, intersector, device, pixel_chunk=None):
     """Full frame, one wavefront per sample in plain pixel order (cut into
     wavefronts of `pixel_chunk` pixels if given), averaged over cfg.spp:
@@ -244,12 +258,11 @@ def render(scene, camera, cfg, intersector, device, pixel_chunk=None):
     npix = camera.width * camera.height
     chunk = pixel_chunk or npix
     scene_arrays = make_scene_arrays(scene, device)
-    acc = torch.zeros((npix, 3), dtype=torch.float32, device=device)
-    for s in range(cfg.spp):
-        for c0 in range(0, npix, chunk):
-            ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,
-                               device=device)
-            acc[c0:c0 + ids.shape[0]] += sample_wavefront(
-                scene_arrays, camera, cfg, intersector, s, ids)
+    acc = torch.empty((npix, 3), dtype=torch.float32, device=device)
+    for c0 in range(0, npix, chunk):
+        ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,
+                           device=device)
+        acc[c0:c0 + ids.shape[0]] = sample_sum(
+            scene_arrays, camera, cfg, intersector, ids, cfg.spp)[0]
     img = acc * (1.0 / cfg.spp)
     return img.reshape(camera.height, camera.width, 3)

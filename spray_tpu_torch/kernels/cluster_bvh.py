@@ -264,14 +264,15 @@ def _morton_order(tlo, thi, bits=10):
     return np.argsort(codes, kind="stable")
 
 
-def build_cluster_bvh(vertices, faces, branching=8, num_bins=16,
-                      cluster=CLUSTER):
+def build_cluster_bvh(vertices, faces, branching=8, cluster=CLUSTER):
     """Build the cluster BVH with the Morton cluster builder and an 8-wide
-    SAH tree over the clusters.  (The reference's other builders, its
+    SAH tree over the clusters at the tree's default 16 bins, as the
+    reference's Morton path does.  (The reference's other builders, its
     triangle-SAH `builder="sah"` and Morton-range `tree="range"`, have no
-    caller there and are not copied.)"""
+    caller there and are not copied; its `num_bins` reaches only the
+    former, so it has no counterpart here.)"""
     w, ids, clo, chi = build_clusters(vertices, faces, cluster)
-    bounds, meta = _build_sah_tree(clo, chi, branching, num_bins)
+    bounds, meta = _build_sah_tree(clo, chi, branching)
     return ClusterBVH(
         bounds=bounds, meta=meta, w=w, tri_ids=ids,
         world_lo=clo.min(0).astype(np.float32),

@@ -39,10 +39,11 @@ def save_checkpoint(path, step, params, opt_state):
     np.savez(path, step=step, **arrays)
 
 
-def load_checkpoint(path, device="cpu"):
+def load_checkpoint(path, device=None):
     """Returns (step, params {name: tensor}, opt_state as save_checkpoint
-    takes it), the tensors on `device` (Adam's step counts stay on the
-    host, where torch.optim keeps them)."""
+    takes it), the tensors on `device` (default: the card; Adam's step
+    counts stay on the host, where torch.optim keeps them)."""
+    device = resolve_device(device)
     with np.load(path) as z:
         step = int(z["step"])
         params = {k[2:]: torch.as_tensor(z[k], device=device)

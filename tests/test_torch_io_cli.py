@@ -220,7 +220,7 @@ def test_fit_albedo_recovers_and_checkpoints(tmp_path):
     assert losses[-1] < losses[0] * 0.5
     assert abs(losses[0] - jlosses[0]) <= 1e-5
     np.testing.assert_allclose(losses, jlosses, rtol=FIT_LOSS_RTOL)
-    step, saved, opt_state = load_checkpoint(ckpt)
+    step, saved, opt_state = load_checkpoint(ckpt, device="cpu")
     assert step == 12
     assert saved["albedo"].numpy().tobytes() == params["albedo"].numpy().tobytes()
     assert int(opt_state["albedo"]["step"]) == 12

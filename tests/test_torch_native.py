@@ -131,3 +131,21 @@ def test_cluster_bvh_equals_reference(name):
         assert pt.w.tobytes() == _ref_w_native(_tri_inputs(st)[0],
                                                pj.tri_ids).tobytes()
     np.testing.assert_allclose(pt.w, pj.w, rtol=0, atol=REF_F32_INV_ATOL[name])
+
+
+@pytest.mark.parametrize("name,cluster", [("wisps", 64), ("wisp41k", cb.CLUSTER)])
+def test_cluster_bvh_equals_reference_at_num_bins_8(name, cluster):
+    """The reference's Morton path builds its cluster tree at 16 bins
+    whatever `num_bins` says (it reaches only the triangle-SAH builder), so
+    its pages at num_bins=8 equal the port's, which has no `num_bins`.  On
+    these scenes a tree at 8 bins would be another tree."""
+    st, sj = SCENES[name](ts), SCENES[name](js)
+    pt = cb.build_cluster_bvh(st.vertices, st.faces, cluster=cluster)
+    pj = jcb.build_cluster_bvh(sj.vertices, sj.faces, num_bins=8,
+                               cluster=cluster)
+    for k in ("bounds", "meta", "tri_ids", "world_lo", "world_hi"):
+        assert getattr(pt, k).tobytes() == getattr(pj, k).tobytes(), k
+    np.testing.assert_allclose(pt.w, pj.w, rtol=0, atol=REF_F32_INV_ATOL[name])
+    _, _, clo, chi = cb.build_clusters(st.vertices, st.faces, cluster)
+    _, meta8 = cb._build_sah_tree(clo, chi, 8, 8)
+    assert meta8.tobytes() != pt.meta.tobytes()
