@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
+
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
 _KEY1 = 0x3443F9A5
@@ -49,12 +51,15 @@ def threefry2x32(key0, key1, x0, x1):
     x0 = (x0 + k0) & _MASK
     x1 = (x1 + k1) & _MASK
     for chunk in range(5):
-        rots = _ROT[0:4] if chunk % 2 == 0 else _ROT[4:8]
-        for r in rots:
-            x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(chunk + 1) % 3]) & _MASK
-        x1 = (x1 + ks[(chunk + 2) % 3] + chunk + 1) & _MASK
+        # a span a chunk: a whole draw is ~500 host events on the card,
+        # past what a profile looks back for the innermost running span
+        with trace.span("spray.glue.rng"):
+            rots = _ROT[0:4] if chunk % 2 == 0 else _ROT[4:8]
+            for r in rots:
+                x0 = (x0 + x1) & _MASK
+                x1 = _rotl(x1, r) ^ x0
+            x0 = (x0 + ks[(chunk + 1) % 3]) & _MASK
+            x1 = (x1 + ks[(chunk + 2) % 3] + chunk + 1) & _MASK
     return x0, x1
 
 
@@ -73,8 +78,9 @@ def random_bits(seed, pixel, sample, dim):
 
 def uniform(seed, pixel, sample, dim):
     """float32 uniform in [0, 1) from the top 24 bits (exact in fp32)."""
-    bits = random_bits(seed, pixel, sample, dim)
-    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    with trace.span("spray.glue.rng"):
+        bits = random_bits(seed, pixel, sample, dim)
+        return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def uniform2(seed, pixel, sample, bounce, purpose):

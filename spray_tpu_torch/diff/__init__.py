@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import geom
 from ..core.device import resolve_device
 from ..core.types import Hits
@@ -64,8 +65,9 @@ class DetachedIntersector:
         # intersector's own t.  The reference falls back to tmax there: an
         # infinite window then puts the shading point at infinity and NaN
         # into every gradient through the lanes torch.where masks.
-        t, u, v, _ = reintersect(self.vertices, self.faces, h.prim, o, d, h.t,
-                                 h.valid)
+        with trace.span("spray.glue.hits"):
+            t, u, v, _ = reintersect(self.vertices, self.faces, h.prim, o, d,
+                                     h.t, h.valid)
         return Hits(t=t, prim=h.prim, u=u, v=v, valid=h.valid)
 
     def occluded(self, o, d, tmax):
@@ -138,7 +140,8 @@ def make_diff_render_fn(scene, camera, cfg, make_intersector=None,
     consts = scene_consts(scene, device)
 
     def render(params):
-        arrays, vertices, faces = diff_scene_arrays(scene, params, consts)
+        with trace.span("spray.glue.scene_arrays"):
+            arrays, vertices, faces = diff_scene_arrays(scene, params, consts)
         intersector = DetachedIntersector(base_intersector, vertices, faces)
         if spp_batch:
             pix = pids.repeat_interleave(spp)
@@ -150,7 +153,9 @@ def make_diff_render_fn(scene, camera, cfg, make_intersector=None,
         else:
             acc, nrays = wavefront.sample_sum(arrays, camera, cfg,
                                               intersector, pids, spp)
-        img = (acc[inv] * (1.0 / spp)).reshape(camera.height, camera.width, 3)
+        with trace.span("spray.glue.accumulate"):
+            img = (acc[inv] * (1.0 / spp)).reshape(camera.height,
+                                                   camera.width, 3)
         return (img, nrays) if with_stats else img
 
     render.base_intersector = base_intersector

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.device import free_bytes, resolve_device
 from ..kernels.common import tile_swizzle_order
 from . import wavefront
@@ -64,9 +65,10 @@ def make_render_fn(scene, camera, cfg, intersector, with_stats=False,
         else:
             acc, nrays = wavefront.sample_sum(scene_arrays, camera, cfg,
                                               intersector, pids, spp)
-        img = torch.empty((npix, 3), dtype=torch.float32, device=device)
-        img[pids] = acc
-        img = (img * (1.0 / spp)).reshape(camera.height, camera.width, 3)
+        with trace.span("spray.glue.accumulate"):
+            img = torch.empty((npix, 3), dtype=torch.float32, device=device)
+            img[pids] = acc
+            img = (img * (1.0 / spp)).reshape(camera.height, camera.width, 3)
         return (img, nrays) if with_stats else img
 
     render.spp_batch = spp_batch
@@ -79,11 +81,15 @@ def render_device(scene, camera, cfg, intersector=None, device=None):
     residency I/O between epochs) get the eager per-sample loop."""
     from ..render import default_intersector  # noqa: PLC0415
 
-    device = resolve_device(device)
-    if intersector is None:
-        intersector = default_intersector(scene, device=device)
-    if getattr(intersector, "host_driven", False):
-        img = wavefront.render(scene, camera, cfg, intersector, device)
-        return img.cpu().numpy()
-    fn = make_render_fn(scene, camera, cfg, intersector, device=device)
-    return fn(wavefront.make_scene_arrays(scene, device)).cpu().numpy()
+    with trace.span("spray.frame"):
+        device = resolve_device(device)
+        if intersector is None:
+            intersector = default_intersector(scene, device=device)
+        if getattr(intersector, "host_driven", False):
+            img = wavefront.render(scene, camera, cfg, intersector, device)
+        else:
+            fn = make_render_fn(scene, camera, cfg, intersector,
+                                device=device)
+            img = fn(wavefront.make_scene_arrays(scene, device))
+        with trace.sync("image"):
+            return img.cpu().numpy()

@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import geom, rng
 
 INV_PI = 1.0 / math.pi
@@ -64,9 +65,12 @@ def sample_wavefront(scene_arrays, camera, cfg, intersector, sample_idx,
     n = pixel_ids.shape[0]
     background = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
 
-    jx = rng.uniform(cfg.seed, pixel_ids, sample_idx, rng.dim_id(0, rng.PIXEL_JITTER, 0))
-    jy = rng.uniform(cfg.seed, pixel_ids, sample_idx, rng.dim_id(0, rng.PIXEL_JITTER, 1))
-    o, d = geom.camera_rays(camera, pixel_ids, jx, jy)
+    jx = rng.uniform(cfg.seed, pixel_ids, sample_idx,
+                     rng.dim_id(0, rng.PIXEL_JITTER, 0))
+    jy = rng.uniform(cfg.seed, pixel_ids, sample_idx,
+                     rng.dim_id(0, rng.PIXEL_JITTER, 1))
+    with trace.span("spray.glue.camera"):
+        o, d = geom.camera_rays(camera, pixel_ids, jx, jy)
 
     if cfg.integrator == "pt":
         rad, nrays = _path_trace(
@@ -89,6 +93,7 @@ def sample_wavefront(scene_arrays, camera, cfg, intersector, sample_idx,
         nrays = n
     else:
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
+    trace.count("live_rays", nrays)
     return (rad, nrays) if with_stats else rad
 
 
@@ -120,51 +125,66 @@ def _path_trace(o, d, pixel_ids, sample_idx, albedo, emission, normals, eps,
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
 
     for bounce in range(cfg.bounces + 1):
-        win = torch.where(alive, tmax, torch.zeros_like(tmax))
-        nrays = nrays + alive.sum()
-        hits = intersector.intersect(o, d, tmin, win)
-        prim = hits.prim.long()
-        hit = alive & hits.valid
-        miss = alive & ~hits.valid
-        radiance = radiance + _masked(miss, throughput * background)
-        if not nee or bounce == 0:
-            # with NEE, emission after the first hit is counted by the light
-            # samples
-            radiance = radiance + _masked(hit, throughput * pgather(emission, prim))
-        if bounce == cfg.bounces:
-            break
-        p, nrm = _shade_prep(o, d, hits, normals, eps)
-        if nee:
-            u_pick = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                                 rng.dim_id(bounce, rng.LIGHT, 0))
-            lu1 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                              rng.dim_id(bounce, rng.LIGHT, 1))
-            lu2 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                              rng.dim_id(bounce, rng.LIGHT, 2))
-            y, ny, le, pick_w = _sample_light_point(lights, u_pick, lu1, lu2)
-            wi_raw = y - p
-            d2 = geom.dot(wi_raw, wi_raw)
-            dist = torch.sqrt(torch.clamp(d2, min=1e-12))
-            wi = wi_raw / dist[..., None]
-            cos_s = geom.dot(nrm, wi)
-            cos_l = -geom.dot(ny, wi)
-            front = hit & (cos_s > 0) & (cos_l > 0)
-            nrays = nrays + front.sum()
-            occ = intersector.occluded(
-                p, wi, torch.where(front, dist * (1.0 - 1e-3), torch.zeros_like(dist))
-            )
-            geo = cos_s * cos_l / torch.clamp(d2, min=1e-12) * pick_w
-            contrib = (throughput * pgather(albedo, prim) * INV_PI * le
-                       * geo[..., None])
-            radiance = radiance + _masked(front & ~occ, contrib)
-        u1, u2 = rng.uniform2(cfg.seed, pixel_ids, sample_idx, bounce, rng.BSDF)
-        local = geom.cosine_hemisphere(u1, u2)
-        new_d = geom.local_to_world(local, nrm)
-        throughput = throughput * torch.where(
-            hit[..., None], pgather(albedo, prim), torch.ones_like(throughput))
-        alive = hit & (throughput.amax(dim=-1) > 0.0)
-        o = torch.where(hit[..., None], p, o)
-        d = torch.where(hit[..., None], new_d, d)
+        # every stretch of a bounce lies in a leaf span: a gap in a long
+        # outer span after hundreds of host events would read as bare
+        # python to a profile that looks back a bounded number of events
+        with trace.span("spray.glue.bounce"):
+            win = torch.where(alive, tmax, torch.zeros_like(tmax))
+            nrays = nrays + alive.sum()
+            with trace.span("spray.glue.intersect"):
+                hits = intersector.intersect(o, d, tmin, win)
+            with trace.span("spray.glue.shade"):
+                prim = hits.prim.long()
+                hit = alive & hits.valid
+                miss = alive & ~hits.valid
+                radiance = radiance + _masked(miss, throughput * background)
+                if not nee or bounce == 0:
+                    # with NEE, emission after the first hit is counted by
+                    # the light samples
+                    radiance = radiance + _masked(
+                        hit, throughput * pgather(emission, prim))
+                if bounce == cfg.bounces:
+                    break
+                p, nrm = _shade_prep(o, d, hits, normals, eps)
+            if nee:
+                with trace.span("spray.glue.nee"):
+                    u_pick = rng.uniform(cfg.seed, pixel_ids, sample_idx,
+                                         rng.dim_id(bounce, rng.LIGHT, 0))
+                    lu1 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
+                                      rng.dim_id(bounce, rng.LIGHT, 1))
+                    lu2 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
+                                      rng.dim_id(bounce, rng.LIGHT, 2))
+                    with trace.span("spray.glue.light"):
+                        y, ny, le, pick_w = _sample_light_point(
+                            lights, u_pick, lu1, lu2)
+                        wi_raw = y - p
+                        d2 = geom.dot(wi_raw, wi_raw)
+                        dist = torch.sqrt(torch.clamp(d2, min=1e-12))
+                        wi = wi_raw / dist[..., None]
+                        cos_s = geom.dot(nrm, wi)
+                        cos_l = -geom.dot(ny, wi)
+                        front = hit & (cos_s > 0) & (cos_l > 0)
+                        nrays = nrays + front.sum()
+                        swin = torch.where(front, dist * (1.0 - 1e-3),
+                                           torch.zeros_like(dist))
+                    occ = intersector.occluded(p, wi, swin)
+                    with trace.span("spray.glue.shade"):
+                        geo = (cos_s * cos_l / torch.clamp(d2, min=1e-12)
+                               * pick_w)
+                        contrib = (throughput * pgather(albedo, prim)
+                                   * INV_PI * le * geo[..., None])
+                        radiance = radiance + _masked(front & ~occ, contrib)
+            u1, u2 = rng.uniform2(cfg.seed, pixel_ids, sample_idx, bounce,
+                                  rng.BSDF)
+            with trace.span("spray.glue.scatter"):
+                local = geom.cosine_hemisphere(u1, u2)
+                new_d = geom.local_to_world(local, nrm)
+                throughput = throughput * torch.where(
+                    hit[..., None], pgather(albedo, prim),
+                    torch.ones_like(throughput))
+                alive = hit & (throughput.amax(dim=-1) > 0.0)
+                o = torch.where(hit[..., None], p, o)
+                d = torch.where(hit[..., None], new_d, d)
     return radiance, nrays
 
 
@@ -257,7 +277,8 @@ def render(scene, camera, cfg, intersector, device, pixel_chunk=None):
     and of the oracle.  Returns the (H, W, 3) image tensor."""
     npix = camera.width * camera.height
     chunk = pixel_chunk or npix
-    scene_arrays = make_scene_arrays(scene, device)
+    with trace.span("spray.glue.scene_arrays"):
+        scene_arrays = make_scene_arrays(scene, device)
     acc = torch.empty((npix, 3), dtype=torch.float32, device=device)
     for c0 in range(0, npix, chunk):
         ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,

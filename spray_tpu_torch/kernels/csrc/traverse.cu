@@ -294,10 +294,14 @@ __device__ __forceinline__ int next_live_ray(WalkShared& sh, int total,
     return q < total ? (int)sh.queue[q] : -1;
 }
 
-// Once per warp, by lane 0.
+// Once per warp, by lane 0.  A warp that walked no ray adds nothing: in a
+// slot launch most warps find no live ray, and the atomics of all of them
+// on the same three words made the traversal of a traced out-of-core frame
+// ~15% slower on an H100.
 __device__ __forceinline__ void flush_counts(unsigned long long* counters,
                                              const Counts& cnt) {
-    if (counters == nullptr) return;
+    if (counters == nullptr || (cnt.nodes | cnt.leaves | cnt.tests) == 0)
+        return;
     atomicAdd(counters + 0, cnt.nodes);
     atomicAdd(counters + 1, cnt.leaves);
     atomicAdd(counters + 2, cnt.tests);

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.device import resolve_device
 from ..core.types import Hits
 from ..domains.partition import median_split_assign
@@ -179,18 +180,20 @@ def _packet_domain_order(o, d, tmin, tmax, dom_aabb, packet):
     inv = 1.0 / torch.where(torch.abs(d3) > eps, d3, torch.full_like(d3, eps))
     entries = []
     for box in dom_aabb:  # D is small: no (D, P, packet) intermediate
-        t0 = (box[0:3] - o3) * inv
-        t1 = (box[3:6] - o3) * inv
-        tn = torch.maximum(torch.minimum(t0, t1).amax(dim=2), lo_w)
-        tf = torch.minimum(torch.maximum(t0, t1).amin(dim=2), hi_w)
-        ent = torch.where(tn <= tf, tn, torch.full_like(tn, float("inf")))
-        entries.append(ent.amin(dim=1))
-    entry = torch.stack(entries, dim=1)  # (P, D)
-    order = torch.argsort(entry, dim=1, stable=True)
-    entry_sorted = torch.gather(entry, 1, order)
-    order = torch.where(torch.isfinite(entry_sorted), order,
-                        torch.full_like(order, -1))
-    return order.to(torch.int32).contiguous(), entry_sorted
+        with trace.span("spray.glue.order"):
+            t0 = (box[0:3] - o3) * inv
+            t1 = (box[3:6] - o3) * inv
+            tn = torch.maximum(torch.minimum(t0, t1).amax(dim=2), lo_w)
+            tf = torch.minimum(torch.maximum(t0, t1).amin(dim=2), hi_w)
+            ent = torch.where(tn <= tf, tn, torch.full_like(tn, float("inf")))
+            entries.append(ent.amin(dim=1))
+    with trace.span("spray.glue.order"):
+        entry = torch.stack(entries, dim=1)  # (P, D)
+        order = torch.argsort(entry, dim=1, stable=True)
+        entry_sorted = torch.gather(entry, 1, order)
+        order = torch.where(torch.isfinite(entry_sorted), order,
+                            torch.full_like(order, -1))
+        return order.to(torch.int32).contiguous(), entry_sorted
 
 
 ROUTED_MODES = ("fused", "grid", "global", True, False)
@@ -252,8 +255,11 @@ class MultiDomainClusterIntersector:
 
     def _args(self, o, d, tmin, tmax):
         """Packet-ordered padded rays + their domain lists."""
-        perm, inv = _live_partition(tmax, d, o, self.world_lo, self.world_hi)
-        rays = pad_rays(o[perm], d[perm], tmin[perm], tmax[perm], self.packet)
+        with trace.span("spray.glue.partition"):
+            perm, inv = _live_partition(tmax, d, o, self.world_lo,
+                                        self.world_hi)
+            rays = pad_rays(o[perm], d[perm], tmin[perm], tmax[perm],
+                            self.packet)
         order, _ = _packet_domain_order(*rays, self.dom_aabb, self.packet)
         return (order, *rays, self.bounds, self.meta, self.w, self.packet,
                 self.depth), inv
@@ -331,17 +337,23 @@ class MultiDomainClusterIntersector:
         return torch.where(ever.repeat_interleave(self.packet), occ, 0)
 
     def intersect(self, o, d, tmin, tmax):
-        args, inv = self._args(o, d, tmin, tmax)
-        if self.routed == "fused":
-            t, code = traverse.nearest(*args)
-        else:
-            t, code = self._rounds_nearest(args)
-        return self._hits(o, d, tmax, args, inv, t, code)
+        with trace.span("spray.glue.route"):
+            args, inv = self._args(o, d, tmin, tmax)
+        with trace.span("spray.glue.launch"):
+            if self.routed == "fused":
+                t, code = traverse.nearest(*args)
+            else:
+                t, code = self._rounds_nearest(args)
+        with trace.span("spray.glue.hits"):
+            return self._hits(o, d, tmax, args, inv, t, code)
 
     def occluded(self, o, d, tmax):
-        args, inv = self._args(o, d, torch.zeros_like(tmax), tmax)
-        if self.routed == "fused":
-            occ = self._routed_anyhit_fused(args)
-        else:
-            occ = self._rounds_anyhit(args)
-        return occ[: o.shape[0]][inv] != 0
+        with trace.span("spray.glue.route"):
+            args, inv = self._args(o, d, torch.zeros_like(tmax), tmax)
+        with trace.span("spray.glue.launch"):
+            if self.routed == "fused":
+                occ = self._routed_anyhit_fused(args)
+            else:
+                occ = self._rounds_anyhit(args)
+        with trace.span("spray.glue.hits"):
+            return occ[: o.shape[0]][inv] != 0

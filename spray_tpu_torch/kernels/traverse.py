@@ -40,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import geom
 from ..core.device import resolve_device
 from ..core.types import Hits
@@ -334,6 +335,8 @@ def _check(order, o, d, tmin, tmax, bounds, meta, w, packet):
 
 def _launch(fn, order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
             outs, counters):
+    if counters is None:  # while a profiler records, the trace's buffer
+        counters = trace.kernel_counters(o.device)
     stack = _build.load("traverse").spray_stack_size()
     if 7 * depth + 1 > stack:
         raise ValueError(f"BVH depth {depth} needs a stack of {7 * depth + 1}"
@@ -363,7 +366,9 @@ def nearest(order, o, d, tmin, tmax, bounds, meta, w, packet, depth,
     o, d (N, 3), tmin, tmax (N,) f32 with N = P * packet; pages bounds
     (D, Nn, 8, 6) f32, meta (D, Nn, 8) i32, w (D, Nc, 4, 3C) f32; depth:
     tree depth of the pages (`tree_depth`).  counters: optional (3,) int64
-    CUDA tensor that receives (node visits, leaf visits, ray-tri tests).
+    CUDA tensor that receives (node visits, leaf visits, ray-tri tests);
+    while a profiler records, the kernels add into
+    `trace.kernel_counters` when none is given.
     Returns (t (N,) f32 rounded-up hit distance or tmax, code (N,) i32
     global code or -1)."""
     _check(order, o, d, tmin, tmax, bounds, meta, w, packet)

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import trace
 from .bvh.traverse import BVHIntersector
 from .core.config import RenderConfig
 from .core.device import resolve_device
@@ -79,9 +80,11 @@ class Pipeline:
     _stats_index: int = 1
 
     def run(self):
-        out = self._fn(*self._args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with trace.span("spray.step"):
+            out = self._fn(*self._args)
+            if self.device.type == "cuda":
+                with trace.sync("step"):
+                    torch.cuda.synchronize(self.device)
         return out
 
     def rays_traced(self, out):
@@ -111,9 +114,12 @@ def make_pipeline(scene, camera, cfg: RenderConfig, backward=False,
 
     def step(params):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        img, nrays = render_fn(p)
-        loss = torch.mean(img * w)
-        return loss.detach(), grads_of(loss, p), nrays
+        with trace.span("spray.autograd.forward"):
+            img, nrays = render_fn(p)
+            loss = torch.mean(img * w)
+        with trace.span("spray.autograd.backward"):
+            grads = grads_of(loss, p)
+        return loss.detach(), grads, nrays
 
     params = {
         k: torch.as_tensor(np.asarray(getattr(scene, k), np.float32),

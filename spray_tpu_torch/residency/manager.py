@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.device import resolve_device
 
 
@@ -65,50 +66,55 @@ class ResidencyManager:
     def acquire(self, domain_ids):
         """Make `domain_ids` resident (len <= num_slots).  Returns their page
         dicts in the same order."""
-        ids = [int(d) for d in domain_ids]
-        if len(ids) > self.num_slots:
-            raise ValueError(
-                f"requested {len(ids)} domains > {self.num_slots} slots")
-        out = []
-        for d in ids:
-            if d in self._resident:
-                self.hits += 1
-                self._lru.remove(d)
-            else:
-                while len(self._resident) >= self.num_slots:
-                    # evict the least recently used domain not requested
-                    cand = next((c for c in self._lru if c not in ids), None)
-                    if cand is None:
-                        raise RuntimeError("all slots pinned by request")
-                    self._evict(cand)
-                self._resident[d] = self._upload(d)
-                self.loads += 1
-            self._lru.append(d)
-            out.append(self._hand_out(d))
-        return out
+        with trace.span("spray.residency.acquire"):
+            ids = [int(d) for d in domain_ids]
+            if len(ids) > self.num_slots:
+                raise ValueError(
+                    f"requested {len(ids)} domains > {self.num_slots} slots")
+            out = []
+            for d in ids:
+                if d in self._resident:
+                    self.hits += 1
+                    self._lru.remove(d)
+                else:
+                    while len(self._resident) >= self.num_slots:
+                        # evict the least recently used domain not requested
+                        cand = next((c for c in self._lru if c not in ids),
+                                    None)
+                        if cand is None:
+                            raise RuntimeError("all slots pinned by request")
+                        self._evict(cand)
+                    with trace.span("spray.residency.upload"):
+                        self._resident[d] = self._upload(d)
+                    self.loads += 1
+                self._lru.append(d)
+                out.append(self._hand_out(d))
+            return out
 
     def prefetch(self, domain_ids, pinned=()):
         """Start uploads of `domain_ids` into free or evictable slots without
         evicting anything in `pinned` (the scheduled set); they overlap the
         current epoch.  A prefetched domain is least recent, so a wrong
         guess is evicted first.  Returns how many uploads started."""
-        pinned = {int(p) for p in pinned}
-        started = 0
-        for d in domain_ids:
-            d = int(d)
-            if d in self._resident:
-                continue
-            if len(self._resident) >= self.num_slots:
-                evictable = [c for c in self._lru if c not in pinned]
-                if not evictable:
-                    break  # every slot pinned: no room to prefetch
-                self._evict(evictable[0])
-            self._resident[d] = self._upload(d)
-            self._lru.insert(0, d)
-            self.loads += 1
-            self.prefetches += 1
-            started += 1
-        return started
+        with trace.span("spray.residency.prefetch"):
+            pinned = {int(p) for p in pinned}
+            started = 0
+            for d in domain_ids:
+                d = int(d)
+                if d in self._resident:
+                    continue
+                if len(self._resident) >= self.num_slots:
+                    evictable = [c for c in self._lru if c not in pinned]
+                    if not evictable:
+                        break  # every slot pinned: no room to prefetch
+                    self._evict(evictable[0])
+                with trace.span("spray.residency.upload"):
+                    self._resident[d] = self._upload(d)
+                self._lru.insert(0, d)
+                self.loads += 1
+                self.prefetches += 1
+                started += 1
+            return started
 
     def peek(self, domain_id):
         """Pages of an already resident domain, without upload or LRU touch

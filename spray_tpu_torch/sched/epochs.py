@@ -27,12 +27,14 @@ domain set), with the host-driven per-epoch loop (`epoch_step`).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..bvh.traverse import DeviceBVH
 from ..core.device import resolve_device
 from ..core.types import Hits
@@ -44,6 +46,7 @@ from ..residency.manager import ResidencyManager
 from .multidomain import BVH_FIELDS, DeviceDomainSet, domain_entries, trace_domain
 
 PROBE_MB_S = 50.0  # host->device rate below which lookahead turns itself off
+EPOCH_LOG_ROWS = 4096  # rows of `epoch_log` kept: the newest batches
 
 
 @dataclasses.dataclass
@@ -175,23 +178,24 @@ def _trace_slots(state, wave, slots, need, nearest, has_need, speculate,
     updated carry."""
     best_t, best_prim, found, processed, traced, spec = carry
     for d_id, slot in slots:
-        at_nearest = (nearest == d_id) & has_need
-        active = need[:, d_id]
-        if not speculate:
-            active = active & at_nearest
-        traced = traced + active.sum()
-        spec = spec + (active & ~at_nearest).sum()
-        live = active & ~found if state.occ_mode else active
-        if any_hit:
-            f = wave.trace(slot, live, best_t, True, depth) & active
-        else:
-            t, prim = wave.trace(slot, live, best_t, False, depth)
-            f = (prim >= 0) & active
-            upd = f & (t < best_t)
-            best_t = torch.where(upd, t, best_t)
-            best_prim = torch.where(upd, prim, best_prim)
-        found = found | f
-        processed[:, d_id] |= active
+        with trace.span("spray.sched.slot"):
+            at_nearest = (nearest == d_id) & has_need
+            active = need[:, d_id]
+            if not speculate:
+                active = active & at_nearest
+            traced = traced + active.sum()
+            spec = spec + (active & ~at_nearest).sum()
+            live = active & ~found if state.occ_mode else active
+            if any_hit:
+                f = wave.trace(slot, live, best_t, True, depth) & active
+            else:
+                t, prim = wave.trace(slot, live, best_t, False, depth)
+                f = (prim >= 0) & active
+                upd = f & (t < best_t)
+                best_t = torch.where(upd, t, best_t)
+                best_prim = torch.where(upd, prim, best_prim)
+            found = found | f
+            processed[:, d_id] |= active
     return best_t, best_prim, found, processed, traced, spec
 
 
@@ -286,7 +290,9 @@ def epoch_batch_cluster(state, slots, speculate, max_epochs, depth,
     epochs = 0
     while True:
         need, nearest, has_need, more = derive(carry[0], carry[2], carry[3])
-        if epochs >= max_epochs or not bool(more):
+        with trace.sync("more"):
+            more = bool(more)
+        if epochs >= max_epochs or not more:
             break
         carry = _trace_slots(state, wave, slots, need, nearest, has_need,
                              speculate, any_hit, depth, carry)
@@ -294,7 +300,7 @@ def epoch_batch_cluster(state, slots, speculate, max_epochs, depth,
     bt, bp, found, processed, traced, spec = carry
     state = dataclasses.replace(state, best_t=bt, best_prim=bp, found=found,
                                 processed=processed)
-    return state, epochs, traced, spec, bool(more)
+    return state, epochs, traced, spec, more
 
 
 class OOCIntersector:
@@ -389,8 +395,9 @@ class OOCIntersector:
                                           device)
         self.stats = EpochStats()
         # one dict per batch (or epoch): queue sizes, schedule, residency
-        # and work counters
-        self.epoch_log = []
+        # and work counters; the newest EPOCH_LOG_ROWS, so that a
+        # long-lived intersector holds a bounded log
+        self.epoch_log = collections.deque(maxlen=EPOCH_LOG_ROWS)
         self._n_domains_actual = self.dset.num_domains
         # every domain fits the slots: the whole trace is one batch
         self.all_resident = (self.device_batched
@@ -428,12 +435,14 @@ class OOCIntersector:
 
     def _run_epochs_all_resident(self, state, any_hit):
         """All domains resident: the entire trace is one batch."""
-        state, epochs, traced, spec, remaining = epoch_batch_cluster(
-            state, self._slots_all, self.speculate, self.max_epochs,
-            self.depth, any_hit=any_hit, spec_bound=self.spec_bound)
+        with trace.span("spray.sched.epochs"):
+            state, epochs, traced, spec, remaining = epoch_batch_cluster(
+                state, self._slots_all, self.speculate, self.max_epochs,
+                self.depth, any_hit=any_hit, spec_bound=self.spec_bound)
         if remaining:
             raise RuntimeError("epoch loop failed to converge (max_epochs)")
-        traced, spec = torch.stack([traced, spec]).tolist()
+        with trace.sync("traced"):
+            traced, spec = torch.stack([traced, spec]).tolist()
         self._absorb(epochs, traced, spec, {
             "epoch": self.stats.epochs + epochs,
             "scheduled": list(range(self._n_domains_actual)),
@@ -449,41 +458,54 @@ class OOCIntersector:
         has work."""
         k = self.sched_width
         for _ in range(self.max_epochs):
-            if self.lookahead:
-                both = torch.stack([queue_counts(state),
-                                    second_queue_counts(state)]).cpu().numpy()
-                counts, counts_next = both[0], both[1]
-            else:
-                counts = queue_counts(state).cpu().numpy()
-            if counts.sum() == 0:
-                break
-            sched = schedule_top_k(counts, k)
-            slots = self._schedule(counts, sched)
-            ids = [d for d, _ in slots]
-            if self.lookahead:
-                # the next batch from each ray's second-nearest needed
-                # domain, then current-queue order
-                order = np.argsort(-counts_next, kind="stable")
-                nxt = [int(d) for d in order
-                       if counts_next[d] > 0 and int(d) not in ids]
-                nxt += [int(d) for d in np.argsort(-counts, kind="stable")
-                        if counts[d] > 0 and int(d) not in ids
-                        and int(d) not in nxt]
-                self.residency.prefetch(nxt[:self.reserve], pinned=sched)
-            state, epochs, traced, spec, _ = epoch_batch_cluster(
-                state, slots, self.speculate, self.max_epochs, self.depth,
-                any_hit=any_hit, spec_bound=self.spec_bound)
-            if epochs == 0:
-                raise RuntimeError(
-                    "batched epoch loop made no progress (scheduled domains "
-                    "had no resident work)")
-            traced, spec = torch.stack([traced, spec]).tolist()
-            self._absorb(epochs, traced, spec, {
-                "epoch": self.stats.epochs + epochs,
-                "queued": int(counts.sum()), "scheduled": sched,
-                "resident_extra": len(ids) - len(sched),
-                "batch_epochs": epochs,
-            })
+            with trace.span("spray.sched.batch"):
+                with trace.span("spray.sched.counts"):
+                    if self.lookahead:
+                        both = torch.stack([queue_counts(state),
+                                            second_queue_counts(state)])
+                        with trace.sync("counts"):
+                            both = both.cpu().numpy()
+                        counts, counts_next = both[0], both[1]
+                    else:
+                        counts = queue_counts(state)
+                        with trace.sync("counts"):
+                            counts = counts.cpu().numpy()
+                if counts.sum() == 0:
+                    break
+                sched = schedule_top_k(counts, k)
+                slots = self._schedule(counts, sched)
+                ids = [d for d, _ in slots]
+                if self.lookahead:
+                    # the next batch from each ray's second-nearest needed
+                    # domain, then current-queue order
+                    with trace.span("spray.sched.lookahead"):
+                        order = np.argsort(-counts_next, kind="stable")
+                        nxt = [int(d) for d in order
+                               if counts_next[d] > 0 and int(d) not in ids]
+                        nxt += [int(d)
+                                for d in np.argsort(-counts, kind="stable")
+                                if counts[d] > 0 and int(d) not in ids
+                                and int(d) not in nxt]
+                        self.residency.prefetch(nxt[:self.reserve],
+                                                pinned=sched)
+                with trace.span("spray.sched.epochs"):
+                    state, epochs, traced, spec, _ = epoch_batch_cluster(
+                        state, slots, self.speculate, self.max_epochs,
+                        self.depth, any_hit=any_hit,
+                        spec_bound=self.spec_bound)
+                if epochs == 0:
+                    raise RuntimeError(
+                        "batched epoch loop made no progress (scheduled "
+                        "domains had no resident work)")
+                with trace.sync("traced"):
+                    traced, spec = torch.stack([traced, spec]).tolist()
+                with trace.span("spray.sched.absorb"):
+                    self._absorb(epochs, traced, spec, {
+                        "epoch": self.stats.epochs + epochs,
+                        "queued": int(counts.sum()), "scheduled": sched,
+                        "resident_extra": len(ids) - len(sched),
+                        "batch_epochs": epochs,
+                    })
         else:
             raise RuntimeError("epoch loop failed to converge (max_epochs)")
         self._sync_residency_stats()
@@ -495,30 +517,39 @@ class OOCIntersector:
         if self.device_batched:
             return self._run_epochs_batched(state, any_hit)
         for _ in range(self.max_epochs):
-            counts = queue_counts(state).cpu().numpy()
-            sched = schedule_top_k(counts, self.sched_width)
-            if not sched:
-                break
-            slots = self._schedule(counts, sched)
-            if self.lookahead:
-                # the next epoch = next-biggest queues not resident now
-                order = np.argsort(-counts, kind="stable")
-                ids = [d for d, _ in slots]
-                nxt = [int(d) for d in order
-                       if counts[d] > 0 and int(d) not in ids]
-                self.residency.prefetch(nxt[:self.reserve], pinned=sched)
-            if self.backend == "cluster":
-                state, traced, spec = epoch_step_cluster(
-                    state, slots, self.speculate, self.depth)
-            else:
-                state, traced, spec = epoch_step(state, slots, self.speculate,
-                                                 self.leaf_size)
-            traced, spec = torch.stack([traced, spec]).tolist()
-            self._absorb(1, traced, spec, {
-                "epoch": self.stats.epochs + 1,
-                "queued": int(counts.sum()), "scheduled": sched,
-                "resident_extra": len(slots) - len(sched),
-            })
+            with trace.span("spray.sched.batch"):
+                with trace.span("spray.sched.counts"):
+                    counts = queue_counts(state)
+                    with trace.sync("counts"):
+                        counts = counts.cpu().numpy()
+                sched = schedule_top_k(counts, self.sched_width)
+                if not sched:
+                    break
+                slots = self._schedule(counts, sched)
+                if self.lookahead:
+                    # the next epoch = next-biggest queues not resident now
+                    with trace.span("spray.sched.lookahead"):
+                        order = np.argsort(-counts, kind="stable")
+                        ids = [d for d, _ in slots]
+                        nxt = [int(d) for d in order
+                               if counts[d] > 0 and int(d) not in ids]
+                        self.residency.prefetch(nxt[:self.reserve],
+                                                pinned=sched)
+                with trace.span("spray.sched.epochs"):
+                    if self.backend == "cluster":
+                        state, traced, spec = epoch_step_cluster(
+                            state, slots, self.speculate, self.depth)
+                    else:
+                        state, traced, spec = epoch_step(
+                            state, slots, self.speculate, self.leaf_size)
+                with trace.sync("traced"):
+                    traced, spec = torch.stack([traced, spec]).tolist()
+                with trace.span("spray.sched.absorb"):
+                    self._absorb(1, traced, spec, {
+                        "epoch": self.stats.epochs + 1,
+                        "queued": int(counts.sum()), "scheduled": sched,
+                        "resident_extra": len(slots) - len(sched),
+                    })
         else:
             raise RuntimeError("epoch loop failed to converge (max_epochs)")
         self._sync_residency_stats()
@@ -531,28 +562,34 @@ class OOCIntersector:
                                self.dset.aabb_hi.amax(dim=0))
 
     def intersect(self, o, d, tmin, tmax):
-        perm, inv = self._wavefront_perm(o, d, tmax)
-        state = init_state(self.dset, o[perm], d[perm], tmin[perm],
-                           tmax[perm], occ_mode=False)
+        with trace.span("spray.glue.partition"):
+            perm, inv = self._wavefront_perm(o, d, tmax)
+            state = init_state(self.dset, o[perm], d[perm], tmin[perm],
+                               tmax[perm], occ_mode=False)
         state = self._run_epochs(state)
-        self.stats.committed += int(state.found.sum())
-        best_prim = state.best_prim[inv]
-        if self.backend == "jnp":
-            found = state.found[inv]
-            return Hits(t=torch.where(found, state.best_t[inv], tmax),
-                        prim=best_prim, u=state.best_u[inv],
-                        v=state.best_v[inv], valid=found)
-        # the kernels return (t, prim) only; (t, u, v) are recomputed
-        # against the committed triangle, as the other intersectors do
-        t, u, v, valid = traverse.attrs_for_prims(
-            self.v0, self.e1, self.e2, best_prim, o, d, state.best_t[inv],
-            tmax)
-        return Hits(t=torch.where(valid, t, tmax), prim=best_prim, u=u, v=v,
-                    valid=valid)
+        with trace.sync("committed"):
+            self.stats.committed += int(state.found.sum())
+        with trace.span("spray.glue.hits"):
+            best_prim = state.best_prim[inv]
+            if self.backend == "jnp":
+                found = state.found[inv]
+                return Hits(t=torch.where(found, state.best_t[inv], tmax),
+                            prim=best_prim, u=state.best_u[inv],
+                            v=state.best_v[inv], valid=found)
+            # the kernels return (t, prim) only; (t, u, v) are recomputed
+            # against the committed triangle, as the other intersectors do
+            t, u, v, valid = traverse.attrs_for_prims(
+                self.v0, self.e1, self.e2, best_prim, o, d,
+                state.best_t[inv], tmax)
+            return Hits(t=torch.where(valid, t, tmax), prim=best_prim, u=u,
+                        v=v, valid=valid)
 
     def occluded(self, o, d, tmax):
-        perm, inv = self._wavefront_perm(o, d, tmax)
-        state = init_state(self.dset, o[perm], d[perm],
-                           torch.zeros_like(tmax), tmax[perm], occ_mode=True)
+        with trace.span("spray.glue.partition"):
+            perm, inv = self._wavefront_perm(o, d, tmax)
+            state = init_state(self.dset, o[perm], d[perm],
+                               torch.zeros_like(tmax), tmax[perm],
+                               occ_mode=True)
         state = self._run_epochs(state, any_hit=True)
-        return state.found[inv]
+        with trace.span("spray.glue.hits"):
+            return state.found[inv]
