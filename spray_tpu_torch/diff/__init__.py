@@ -75,23 +75,32 @@ class DetachedIntersector:
 
 
 def scene_consts(scene, device):
-    """The scene's faces (int64) and emission on `device`: the constants of
-    `diff_scene_arrays`."""
+    """The constants of `diff_scene_arrays`, built once a scene: the
+    scene's faces (int64) and emission on `device`, its offset epsilon
+    (`wavefront.scene_offset_eps`) and the ids of its emissive faces
+    (`wavefront.light_ids_static`, int64 on `device`).  Adds 1 to the
+    `scene_builds` counter."""
+    trace.count("scene_builds", 1)
     return {
         "faces": torch.as_tensor(np.asarray(scene.faces, np.int64),
                                  device=device),
         "emission": torch.as_tensor(np.asarray(scene.emission, np.float32),
                                     device=device),
+        "offset_eps": wavefront.scene_offset_eps(scene),
+        "light_ids": torch.as_tensor(wavefront.light_ids_static(scene),
+                                     device=device),
     }
 
 
 def diff_scene_arrays(scene, params, consts):
     """Shading arrays from the differentiable params {'vertices', 'albedo',
     'emission'} (any subset; the scene's values stand in for the rest).
-    consts holds the scene's faces and emission on the device.  Normals and
-    light arrays are rebuilt from the live vertices, so vertex gradients
-    flow through shading normals and the NEE estimator.  Returns
-    (arrays, vertices, faces)."""
+    consts is `scene_consts(scene, device)`.  Normals and light arrays are
+    rebuilt from the live vertices, so vertex gradients flow through
+    shading normals and the NEE estimator; the offset epsilon and the light
+    set are the scene's, read from consts.  Adds 0 to the `scene_builds`
+    counter.  Returns (arrays, vertices, faces)."""
+    trace.count("scene_builds", 0)
     faces = consts["faces"]
     device = faces.device
     vertices = params.get("vertices")
@@ -107,9 +116,9 @@ def diff_scene_arrays(scene, params, consts):
         "albedo": albedo,
         "emission": emission,
         "normals": geom.face_normals(vertices, faces),
-        "offset_eps": wavefront.scene_offset_eps(scene),
-        "lights": wavefront.make_light_arrays(
-            vertices, faces, emission, wavefront.light_ids_static(scene)),
+        "offset_eps": consts["offset_eps"],
+        "lights": wavefront.make_light_arrays(vertices, faces, emission,
+                                              consts["light_ids"]),
     }
     return arrays, vertices, faces
 

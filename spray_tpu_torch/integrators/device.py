@@ -78,7 +78,9 @@ def make_render_fn(scene, camera, cfg, intersector, with_stats=False,
 def render_device(scene, camera, cfg, intersector=None, device=None):
     """Render a frame on `device` -> (H, W, 3) float32 numpy image.
     Host-driven intersectors (the out-of-core scheduler, which runs
-    residency I/O between epochs) get the eager per-sample loop."""
+    residency I/O between epochs) get the eager per-sample loop.  The
+    scene's arrays are built once for a scene and device
+    (`wavefront.scene_arrays_for`)."""
     from ..render import default_intersector  # noqa: PLC0415
 
     with trace.span("spray.frame"):
@@ -90,6 +92,6 @@ def render_device(scene, camera, cfg, intersector=None, device=None):
         else:
             fn = make_render_fn(scene, camera, cfg, intersector,
                                 device=device)
-            img = fn(wavefront.make_scene_arrays(scene, device))
+            img = fn(wavefront.scene_arrays_for(scene, device))
         with trace.sync("image"):
             return img.cpu().numpy()

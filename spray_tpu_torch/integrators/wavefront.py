@@ -14,6 +14,7 @@ Integrators: "pt" (Lambertian path tracing with next-event estimation),
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -217,7 +218,9 @@ def light_ids_static(scene):
 
 
 def make_light_arrays(vertices, faces, emission, light_ids):
-    """Light-sampling SoA from scene tensors; None without emissive faces."""
+    """Light-sampling SoA from scene tensors; None without emissive faces.
+    light_ids: int64 face ids, a host array or a tensor already on the
+    vertices' device (taken without a copy)."""
     if len(light_ids) == 0:
         return None
     lid = torch.as_tensor(light_ids, device=vertices.device)
@@ -256,6 +259,40 @@ def make_scene_arrays(scene, device):
     }
 
 
+# The one scene whose arrays `scene_arrays_for` holds:
+# (weakref to the Scene, device, arrays), or None.
+_held = None
+
+
+def _let_go(ref):
+    """The held scene was collected: let its arrays go."""
+    global _held
+    if _held is not None and _held[0] is ref:
+        _held = None
+
+
+def scene_arrays_for(scene, device):
+    """`make_scene_arrays(scene, device)`, built once for the scene object
+    and device of the last call and returned as they are while both stay
+    the same; another scene or device builds anew and replaces them.  The
+    arrays are let go when the scene is collected.  Like an intersector's
+    pages, they are those of the scene as it was when first rendered: a
+    caller that edits a scene's arrays in place passes a new `Scene`
+    (`dataclasses.replace`).  Adds 1 to the `scene_builds` counter when it
+    builds, 0 when it reuses."""
+    global _held
+    device = torch.device(device)
+    held = _held
+    if held is not None and held[0]() is scene and held[1] == device:
+        trace.count("scene_builds", 0)
+        return held[2]
+    _held = None  # free the old arrays before building the new ones
+    arrays = make_scene_arrays(scene, device)
+    _held = (weakref.ref(scene, _let_go), device, arrays)
+    trace.count("scene_builds", 1)
+    return arrays
+
+
 def sample_sum(scene_arrays, camera, cfg, intersector, pixel_ids, spp):
     """Radiance of `pixel_ids` summed over samples 0..spp-1, one wavefront a
     sample, added in sample order into one float32 accumulator (the
@@ -274,11 +311,12 @@ def render(scene, camera, cfg, intersector, device, pixel_chunk=None):
     """Full frame, one wavefront per sample in plain pixel order (cut into
     wavefronts of `pixel_chunk` pixels if given), averaged over cfg.spp:
     the eager loop of host-driven intersectors (the out-of-core scheduler)
-    and of the oracle.  Returns the (H, W, 3) image tensor."""
+    and of the oracle.  The scene's arrays come from `scene_arrays_for`.
+    Returns the (H, W, 3) image tensor."""
     npix = camera.width * camera.height
     chunk = pixel_chunk or npix
     with trace.span("spray.glue.scene_arrays"):
-        scene_arrays = make_scene_arrays(scene, device)
+        scene_arrays = scene_arrays_for(scene, device)
     acc = torch.empty((npix, 3), dtype=torch.float32, device=device)
     for c0 in range(0, npix, chunk):
         ids = torch.arange(c0, min(c0 + chunk, npix), dtype=torch.int64,

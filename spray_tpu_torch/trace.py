@@ -15,13 +15,14 @@ Span names are `spray.<layer>.<what>`, with the layers of PERF.md:
 `spray.sync.<site>` around each host read of a device value.
 
 Counters (`read()`): `live_rays` (the rays each sample wavefront traces,
-the sums that make `rays_traced`), and `node_visits`, `leaf_visits`,
-`tri_tests`, which the traversal kernels add into one (3,) int64 device
-buffer (`kernel_counters`).  Device values
-are kept as they are and summed only in `read()`, after the window: a
-counter adds no host read and no launch to the traced path.  The totals
-start anew at the first span or count after a profiler starts (once a
-span, count or `read()` has seen none recording).
+the sums that make `rays_traced`), `scene_builds` (1 for each build of a
+scene's scene-only shading inputs, 0 for each reuse), and `node_visits`,
+`leaf_visits`, `tri_tests`, which the traversal kernels add into one (3,)
+int64 device buffer (`kernel_counters`).  Device values are kept as they
+are and summed only in `read()`, after the window: a counter adds no host
+read and no launch to the traced path.  The totals start anew at the first
+span or count after a profiler starts (once a span, count or `read()` has
+seen none recording).
 """
 
 from __future__ import annotations

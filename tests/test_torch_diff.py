@@ -3,7 +3,9 @@ versions on the CPU) == spray_tpu's `make_diff_render_fn` (jax.grad, Pallas
 in interpret mode): loss and albedo / vertex / emission gradients to 1e-4 on
 the scenes of tests/test_diff.py and tests/test_diff_tight.py; the
 training step `make_pipeline(backward=True)`; and a host-driven frame
-through the out-of-core scheduler."""
+through the out-of-core scheduler.  The scene-only inputs that
+`scene_consts` holds give the arrays, losses and gradients of a rebuild in
+every step bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +23,15 @@ from spray_tpu.kernels.traverse import ClusterBVHIntersector as JCluster
 from spray_tpu.oracle.brute import BruteIntersector as JBrute
 from spray_tpu.render import make_pipeline as j_make_pipeline
 from spray_tpu.sched.epochs import OOCIntersector as JOOC
+from spray_tpu_torch import diff as tdiff
+from spray_tpu_torch.core import geom
+from spray_tpu_torch.core.camera import make_camera
 from spray_tpu_torch.core.config import RenderConfig
 from spray_tpu_torch.diff import grads_of, make_diff_render_fn, render_grad
+from spray_tpu_torch.integrators import wavefront
 from spray_tpu_torch.integrators.device import render_device
 from spray_tpu_torch.interop import camera_from_arrays, scene_from_arrays
+from spray_tpu_torch.io.scenes import wisp_cloud
 from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
 from spray_tpu_torch.kernels.traverse import ClusterBVHIntersector
 from spray_tpu_torch.oracle.brute import BruteIntersector
@@ -255,3 +262,95 @@ def test_rejected_hit_keeps_gradients_finite():
     for k, g in grads.items():
         assert torch.isfinite(g).all(), k
         assert g.abs().max() > 0, k
+
+
+WISP = wisp_cloud(n_blobs=8, tris_per_blob=80, extent=4.0, seed=5)
+
+
+def _rebuilt_arrays(scene, params, consts):
+    """`diff_scene_arrays` as it was before `scene_consts` held the
+    scene-only inputs: the offset epsilon and the light ids from the host
+    arrays in every call."""
+    faces = consts["faces"]
+    device = faces.device
+    vertices = params.get("vertices")
+    if vertices is None:
+        vertices = torch.as_tensor(np.asarray(scene.vertices, np.float32),
+                                   device=device)
+    albedo = params.get("albedo")
+    if albedo is None:
+        albedo = torch.as_tensor(np.asarray(scene.albedo, np.float32),
+                                 device=device)
+    emission = params.get("emission", consts["emission"])
+    arrays = {
+        "albedo": albedo,
+        "emission": emission,
+        "normals": geom.face_normals(vertices, faces),
+        "offset_eps": wavefront.scene_offset_eps(scene),
+        "lights": wavefront.make_light_arrays(
+            vertices, faces, emission, wavefront.light_ids_static(scene)),
+    }
+    return arrays, vertices, faces
+
+
+def test_scene_consts_hold_the_scene_only_inputs():
+    consts = tdiff.scene_consts(WISP, "cpu")
+    eps = consts["offset_eps"]
+    assert eps.dtype == np.float32 and eps == wavefront.scene_offset_eps(WISP)
+    ids = consts["light_ids"]
+    want = wavefront.light_ids_static(WISP)
+    assert isinstance(ids, torch.Tensor) and ids.device.type == "cpu"
+    assert ids.dtype == torch.int64 and len(want) > 0
+    assert np.array_equal(ids.numpy(), want)
+    # the ids are taken as they are: no copy
+    assert torch.as_tensor(ids, device=ids.device) is ids
+
+
+@pytest.mark.parametrize("keys", [(), ("vertices", "albedo"),
+                                  ("vertices", "albedo", "emission")])
+def test_scene_arrays_equal_a_rebuild_in_every_call(keys):
+    consts = tdiff.scene_consts(WISP, "cpu")
+    params = {k: torch.tensor(getattr(WISP, k), requires_grad=True)
+              for k in keys}
+    got, gv, gf = tdiff.diff_scene_arrays(WISP, params, consts)
+    want, wv, wf = _rebuilt_arrays(WISP, params, consts)
+    assert got.keys() == want.keys() and got["lights"].keys() == \
+        want["lights"].keys()
+    assert got["offset_eps"] == want["offset_eps"]
+    for k in ("albedo", "emission", "normals"):
+        assert got[k].numpy(force=True).tobytes() == \
+            want[k].numpy(force=True).tobytes(), k
+    for k, v in want["lights"].items():
+        assert got["lights"][k].numpy(force=True).tobytes() == \
+            v.numpy(force=True).tobytes(), k
+    assert torch.equal(gv, wv) and gf is wf
+    if "vertices" in keys:  # gradients still reach the light geometry
+        assert got["lights"]["area"].requires_grad
+
+
+def test_training_steps_equal_a_rebuild_in_every_step(monkeypatch):
+    """Two steps of make_pipeline(backward=True) on a small wisp_cloud give
+    the loss and gradients of the per-step rebuild bit for bit."""
+    cam = make_camera(eye=(7.0, 5.0, 9.0), lookat=(0.0, 0.0, 0.0),
+                      up=(0, 1, 0), fov_y_deg=45, width=12, height=12)
+    cfg = RenderConfig(width=12, height=12, spp=2, bounces=2, seed=11)
+
+    def two_steps():
+        isect = MultiDomainClusterIntersector(WISP, n_domains=4,
+                                              device="cpu")
+        pipe = make_pipeline(WISP, cam, cfg, backward=True, intersector=isect,
+                             device="cpu")
+        return [pipe.run() for _ in range(2)]
+
+    got = two_steps()
+    with monkeypatch.context() as mp:
+        mp.setattr(tdiff, "diff_scene_arrays", _rebuilt_arrays)
+        want = two_steps()
+    for (gl, gg, gn), (wl, wg, wn) in zip(got, want):
+        assert gl.numpy().tobytes() == wl.numpy().tobytes()
+        assert gg.keys() == wg.keys() == {"vertices", "albedo"}
+        for k in gg:
+            assert gg[k].numpy().tobytes() == wg[k].numpy().tobytes(), k
+        assert int(gn) == int(wn)
+    assert float(got[0][0]) > 0
+    assert all(g.abs().max() > 0 for g in got[0][1].values())

@@ -163,6 +163,8 @@ def test_live_rays_counts_the_rays_traced(runs):
         assert sum(iv.name.startswith("spray.sync.")
                    for iv in _program(tr)) >= 5 * 2
     assert "node_visits" not in counters  # the plain versions count nothing
+    # the scene-only inputs were built before the window: reused in it
+    assert counters.get("scene_builds") == (None if kind == "frame" else 0)
 
 
 def test_outputs_bit_equal_with_tracing_on_and_off(runs):
@@ -277,3 +279,15 @@ def test_span_and_counter_readers_with_nothing_to_read(monkeypatch):
     assert _read("live_rays.frame", _record(bare)) == 5
     for name in ("node_visits.step", "tri_tests.offline"):
         assert _read(name, _record(bare)) is None, name
+
+
+def test_scene_builds_reads_the_counter_per_step(monkeypatch):
+    rec = _record(SYNTH, steps=3)
+    monkeypatch.setattr(trace, "read", lambda: {"scene_builds": 0,
+                                                "live_rays": 9})
+    assert _read("scene_builds.step", rec) == 0.0
+    monkeypatch.setattr(trace, "read", lambda: {"scene_builds": 6})
+    assert _read("scene_builds.frame", rec) == 2.0
+    monkeypatch.setattr(trace, "read", lambda: {"live_rays": 9})
+    assert _read("scene_builds.step", rec) is None
+    assert _read("scene_builds.frame", rec) is None
