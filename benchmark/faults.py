@@ -7,9 +7,16 @@ them (the correctness calibration on the card and the CPU tests).
   count double: the mean taken over the rest.
 - "altered": one lane in 8 of every intersect call that hits gets the id
   of the triangle half the scene away as its hit: an answer altered where
-  it is produced.
+  it is produced.  It wraps the entry's `intersector`: the object the
+  program calls, or, where the program builds one a frame, its class.
+- "exchange": every `torch.distributed.all_to_all_single` delivers the
+  rows from one peer (the next rank) zeroed, so rays sent between cards
+  and their answers are lost: the exchange between chips left out.
 
-A one-chip cell has no exchange between chips to leave out.
+The first three apply to every cell, "exchange" only to a cell of more
+than one chip (`applicable`): a one-chip cell has no exchange between
+chips to leave out.  In a cell of many chips each rank plants the fault
+under its own entry.
 """
 
 from __future__ import annotations
@@ -19,7 +26,12 @@ import dataclasses
 
 import torch
 
-FAULTS = ("unchanged", "half", "altered")
+FAULTS = ("unchanged", "half", "altered", "exchange")
+
+
+def applicable(chips):
+    """The faults a cell of `chips` chips can have."""
+    return FAULTS if chips > 1 else FAULTS[:3]
 
 
 @contextlib.contextmanager
@@ -47,20 +59,47 @@ def planted(name, ent, n_faces):
         finally:
             wavefront.sample_wavefront = orig
     elif name == "altered":
-        isect = ent.intersector
-        orig = isect.intersect
+        target = ent.intersector  # an intersector, or a class of them
+        orig = target.intersect
+        own = vars(target).get("intersect")
 
-        def broken(o, d, tmin, tmax):
-            h = orig(o, d, tmin, tmax)
+        def broken(*args):  # (o, d, tmin, tmax), after self on a class
+            h = orig(*args)
             lane = torch.arange(h.prim.shape[0], device=h.prim.device)
             hit = h.valid & (lane % 8 == 0)
             prim = torch.where(hit, (h.prim + n_faces // 2) % n_faces, h.prim)
             return dataclasses.replace(h, prim=prim.to(h.prim.dtype))
 
-        isect.intersect = broken
+        target.intersect = broken
         try:
             yield
         finally:
-            del isect.intersect
+            if own is None:
+                del target.intersect
+            else:
+                target.intersect = own
+    elif name == "exchange":
+        import torch.distributed as dist  # noqa: PLC0415
+
+        orig = dist.all_to_all_single
+
+        def broken(output, input, output_split_sizes=None,  # noqa: A002
+                   input_split_sizes=None, group=None, async_op=False):
+            work = orig(output, input, output_split_sizes, input_split_sizes,
+                        group=group, async_op=async_op)
+            if work is not None:
+                work.wait()
+            world = dist.get_world_size(group)
+            peer = (dist.get_rank(group) + 1) % world
+            sizes = output_split_sizes or [output.shape[0] // world] * world
+            lo = sum(sizes[:peer])
+            output[lo:lo + sizes[peer]] = 0
+            return work
+
+        dist.all_to_all_single = broken
+        try:
+            yield
+        finally:
+            dist.all_to_all_single = orig
     else:
         raise ValueError(f"fault: want one of {FAULTS}, got {name!r}")

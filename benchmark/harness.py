@@ -12,6 +12,12 @@ metric or entry kind is a file of its own, found by name:
   stepped;
 - `benchmark/metrics/<metric>.py` (or `<metric up to its first dot>.py`):
   the reader of a metric.
+
+A cell whose `chips` is 1 runs here, in this process.  A cell of N > 1
+chips runs in N ranks, one a card (`benchmark/ranks.py`): each builds the
+entry on its own card and steps in lockstep with rank 0, whose clock ends
+the window; the readers read rank 0's record, the check judges rank 0's
+output, and the result line's `device` is formed from every rank's.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from benchmark import check, profile, scenes
+from benchmark import check, faults, guard, profile, ranks, scenes
 from benchmark.reference.render import make_camera
 from benchmark.window import run_window
 
@@ -46,6 +52,8 @@ class Context:
     camera: dict  # the camera basis the benchmark made
     seed: int
     device: torch.device
+    rank: int = 0  # this process's rank, in a cell of chips > 1
+    world: int = 1  # the cell's ranks, one a card
 
 
 @dataclasses.dataclass
@@ -132,9 +140,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _traced(ent, ctx, steps, seconds, clock):
+def _traced(ent, ctx, steps, seconds, clock, agree=None):
     """Profile up to `steps` steps (at least one, no more than fit in
-    `seconds`): (last output, Trace, steps done, wall s)."""
+    `seconds`; in a cell of many ranks, as many as rank 0 decides, through
+    `agree`): (last output, Trace, steps done, wall s)."""
     from torch.profiler import ProfilerActivity  # noqa: PLC0415
     from torch.profiler import profile as torch_profile  # noqa: PLC0415
 
@@ -148,56 +157,172 @@ def _traced(ent, ctx, steps, seconds, clock):
         while True:
             out = ent.step()
             done += 1
-            if done >= steps or clock() - t0 >= seconds:
+            stop = done >= steps or clock() - t0 >= seconds
+            if agree is not None:
+                stop = agree(stop)
+            if stop:
                 break
         _sync(ctx.device)
         wall = clock() - t0
     return out, profile.from_profiler(prof), done, wall
 
 
+def _ordered(result):
+    order = ("correct", "attempted", "failed", "metrics", "device",
+             "breakdown", "checks")
+    return {k: result[k] for k in order if k in result}
+
+
+def _free(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _judge(result, output, ctx, cell_name, clock):
+    t0 = clock()
+    correct, table = check.judge(check.numbers(output, ctx), ctx.limits)
+    print(f"{cell_name}: check {clock() - t0:.4f} s", file=sys.stderr,
+          flush=True)
+    result.update(correct=correct, failed=0 if correct else 1, checks=table)
+
+
 def run_cell(root, manifest, cell_name, seed, seconds, trace, t_start,
-             device="cuda", bench=BENCH, clock=time.perf_counter, plant=None):
+             device="cuda", bench=BENCH, clock=time.perf_counter, fault=None,
+             timeout_s=ranks.TIMEOUT_S):
     """One run of the cell: the result line's dict, with the numbers the
-    check compared under its last key, "checks".  `plant(ent, ctx)`, a
-    context manager, breaks the timed path from the warm-up to the close
-    of the window (the tests' faults)."""
+    check compared under its last key, "checks".  `fault`, one of
+    `benchmark.faults.FAULTS`, breaks the timed path from the warm-up to
+    the close of the window, in every rank (the tests' faults).  A cell of
+    chips > 1 runs in as many ranks (`run_ranks`), within `timeout_s`."""
+    cells = {w["name"]: w for w in manifest["workloads"]}
+    chips = int(cells[cell_name]["chips"]) if cell_name in cells else 1
+    if chips > 1:
+        return run_ranks(root, manifest, cell_name, seed, seconds, trace,
+                         t_start, chips, device, bench, clock, fault,
+                         timeout_s)
     ctx, entry_path = make_context(root, manifest, cell_name, seed, device,
                                    bench)
     entry = _load_module(entry_path, f"benchmark_entry_{entry_path.stem}")
     with contextlib.ExitStack() as stack:
         result, output = _measure(entry.Entry(ctx), ctx, manifest, cell_name,
                                   seconds, trace, t_start, bench, clock,
-                                  stack, plant)
+                                  stack, fault)
     # the check runs once the window has closed, the peak has been read
     # and the program's state is freed
-    gc.collect()
-    if ctx.device.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = clock()
-    correct, table = check.judge(check.numbers(output, ctx), ctx.limits)
-    print(f"{cell_name}: check {clock() - t0:.4f} s", file=sys.stderr,
-          flush=True)
-    result.update(correct=correct, failed=0 if correct else 1, checks=table)
-    order = ("correct", "attempted", "failed", "metrics", "device",
-             "breakdown", "checks")
-    return {k: result[k] for k in order if k in result}
+    _free(ctx.device)
+    _judge(result, output, ctx, cell_name, clock)
+    return _ordered(result)
+
+
+def _card(device):
+    """What tells one card from another: its UUID ("cpu" on the host)."""
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_properties(device).uuid)
+    return "cpu"
+
+
+def _cell_rank(rank, world, device, sync, root, manifest, cell_name, seed,
+               seconds, trace, t_start, bench, fault):
+    """One rank of a cell of many (run by `ranks.run_world`): the entry on
+    this rank's card, the warm-up, the window in lockstep with rank 0, and,
+    on rank 0, the readers and then the check, once every rank has freed
+    its state.  `t_start` is on the system-wide monotonic clock."""
+    guard.check(f"rank {rank} start")
+    clock = time.monotonic
+    ctx, entry_path = make_context(root, manifest, cell_name, seed, device,
+                                   bench)
+    ctx.rank, ctx.world = rank, world
+    entry = _load_module(entry_path, f"benchmark_entry_{entry_path.stem}")
+    with contextlib.ExitStack() as stack:
+        result, output = _measure(entry.Entry(ctx), ctx, manifest, cell_name,
+                                  seconds, trace, t_start, bench, clock,
+                                  stack, fault, sync)
+    result["device"]["card"] = _card(ctx.device)
+    if rank != 0:
+        output = None
+    _free(ctx.device)
+    sync.barrier()  # every rank has freed its state
+    if rank == 0:
+        _judge(result, output, ctx, cell_name, clock)
+    guard.check(f"rank {rank} end")
+    return result
+
+
+def _world_device(reports, trace):
+    """The result line's `device` from every rank's: `count` the distinct
+    cards they ran on, `kind` their common name, `memory_peak_bytes` the
+    largest rank's peak; traced, `busy_s` the mean of the ranks' busy
+    unions and `window_s` rank 0's wall time."""
+    devs = [r["device"] for r in reports]
+    kinds = sorted({d["kind"] for d in devs})
+    if len(kinds) != 1:
+        raise ranks.RankFailure(f"the ranks ran on cards of different kinds: "
+                                f"{kinds}")
+    info = {"platform": devs[0]["platform"], "kind": kinds[0],
+            "count": len({d["card"] for d in devs}),
+            "memory_peak_bytes": max(d["memory_peak_bytes"] for d in devs)}
+    if trace:
+        info["busy_s"] = sum(d["busy_s"] for d in devs) / len(devs)
+        info["window_s"] = devs[0]["window_s"]
+    return info
+
+
+def run_ranks(root, manifest, cell_name, seed, seconds, trace, t_start,
+              world, device="cuda", bench=BENCH, clock=time.perf_counter,
+              fault=None, timeout_s=ranks.TIMEOUT_S):
+    """One run of a cell of `world` chips, one rank a card: rank 0's result
+    with `device` formed from every rank's.  `t_start` is read on `clock`;
+    the ranks read the system-wide monotonic clock, so setup_s spans the
+    spawn of the ranks and their joining the group.  Raises RankFailure
+    if a rank fails or steps other than rank 0 did."""
+    t_start = time.monotonic() - (clock() - t_start)
+    reports = ranks.run_world(
+        _cell_rank, world,
+        (root, manifest, cell_name, seed, seconds, trace, t_start, bench,
+         fault),
+        device=device, timeout_s=timeout_s)
+    for r, rep in enumerate(reports):
+        d = rep["device"]
+        busy = f", busy_s {d['busy_s']!r}" if trace else ""
+        print(f"{cell_name} rank {r}: card {d['card']}, steps "
+              f"{rep['attempted']}, memory_peak_bytes "
+              f"{d['memory_peak_bytes']}{busy}", file=sys.stderr, flush=True)
+    off = [r for r, rep in enumerate(reports)
+           if rep["attempted"] != reports[0]["attempted"]]
+    if off:
+        raise ranks.RankFailure(f"rank {off[0]} stepped "
+                                f"{reports[off[0]]['attempted']} times, rank 0 "
+                                f"{reports[0]['attempted']}")
+    result = reports[0]
+    result["device"] = _world_device(reports, trace)
+    return _ordered(result)
 
 
 def _measure(ent, ctx, manifest, cell_name, seconds, trace, t_start, bench,
-             clock, stack, plant):
+             clock, stack, fault, sync=None):
     """Warm up, measure and read the metrics: (result dict, the output of
-    the window's last step)."""
-    if plant is not None:
-        stack.enter_context(plant(ent, ctx))
+    the window's last step).  `sync`, a ranks.Lockstep in a cell of many
+    ranks, starts the window on every rank at once and ends it where rank
+    0's clock does; only rank 0 reads the metrics."""
+    if fault is not None:
+        stack.enter_context(faults.planted(fault, ent,
+                                           int(ctx.scene["faces"].shape[0])))
+    who = cell_name if ctx.world == 1 else f"{cell_name} rank {ctx.rank}"
     t0 = clock()
     out = ent.step()  # the warm-up step: every shape the window uses
-    print(f"{cell_name}: build {ent.build_s:.4f} s, warm-up step "
+    print(f"{who}: build {ent.build_s:.4f} s, warm-up step "
           f"{clock() - t0:.4f} s", file=sys.stderr, flush=True)
+    agree = None
+    if sync is not None:
+        sync.barrier()  # every rank warm before rank 0's window starts
+        agree = sync.agree
     rec = Record(setup_s=clock() - t_start, build_s=ent.build_s)
     cuda = ctx.device.type == "cuda"
     peak = 0
     if not trace:
-        rec.times, rec.window_s, out = run_window(ent.step, seconds, clock)
+        rec.times, rec.window_s, out = run_window(ent.step, seconds, clock,
+                                                  agree)
         attempted = len(rec.times)
     else:
         rec.counters_before = ent.counters()
@@ -205,7 +330,7 @@ def _measure(ent, ctx, manifest, cell_name, seconds, trace, t_start, bench,
             peak = torch.cuda.max_memory_allocated(ctx.device)
             torch.cuda.reset_peak_memory_stats(ctx.device)
         out, rec.trace, rec.traced_steps, rec.traced_wall_s = _traced(
-            ent, ctx, int(ctx.traffic["trace_steps"]), seconds, clock)
+            ent, ctx, int(ctx.traffic["trace_steps"]), seconds, clock, agree)
         rec.counters_after = ent.counters()
         if cuda:
             rec.window_peak_bytes = torch.cuda.max_memory_allocated(ctx.device)
@@ -213,7 +338,8 @@ def _measure(ent, ctx, manifest, cell_name, seconds, trace, t_start, bench,
     if cuda:
         peak = max(peak, torch.cuda.max_memory_allocated(ctx.device))
     metrics = {}
-    for m in metrics_for(manifest, cell_name, trace):
+    read = metrics_for(manifest, cell_name, trace) if ctx.rank == 0 else []
+    for m in read:
         reader = _load_module(reader_path(m["name"], bench),
                               f"benchmark_metric_{m['name'].replace('.', '_')}")
         v = reader.read(rec)
@@ -231,6 +357,8 @@ def _measure(ent, ctx, manifest, cell_name, seconds, trace, t_start, bench,
         device_info["busy_s"] = profile.busy_us(
             (iv.start_us, iv.end_us) for iv in rec.trace.device) / 1e6
         device_info["window_s"] = rec.traced_wall_s
-        result["breakdown"] = {"device_ops": profile.top_device_ops(rec.trace),
-                               "idle_gaps": profile.idle_gaps(rec.trace)}
+        if ctx.rank == 0:
+            result["breakdown"] = {
+                "device_ops": profile.top_device_ops(rec.trace),
+                "idle_gaps": profile.idle_gaps(rec.trace)}
     return result, ent.output(out)

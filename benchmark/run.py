@@ -8,9 +8,11 @@ against the plain reference, and prints one JSON line last on stdout:
 `correct`, `attempted`, `failed`, `metrics` (the cell's end-to-end
 metrics, or with --trace 1 its per-layer ones), `device` and, traced,
 `breakdown`, then `checks`: each number compared beside its limit, also
-printed as the last lines on stderr.  Without a card, or with a module of
-the JAX stack or of the JAX package loaded, it exits non-zero and prints
-no result.
+printed as the last lines on stderr.  A cell of `chips` N > 1 runs in N
+ranks, one a card (`benchmark/ranks.py`).  Without the cards the cell
+asks for, with fewer cards used than it asks for, with a rank that fails,
+or with a module of the JAX stack or of the JAX package loaded, it exits
+non-zero and prints no result.
 """
 
 import time
@@ -70,6 +72,11 @@ def main(argv=None):
 
     result = run_cell(ROOT, manifest, args.workload, args.seed, args.seconds,
                       args.trace, T_START)
+    used = result["device"]["count"]
+    if used < chips:
+        print(f"needs {chips} CUDA device(s); the run used {used}",
+              file=sys.stderr)
+        return 2
     guard.check("end")
     for name, e in result["checks"].items():
         print(f"check {name} {e['value']!r} limit {e['limit']!r}",

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import pytest
@@ -107,17 +108,13 @@ def test_a_sound_tiny_run_is_correct(tiny, cell):
 
 
 @pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", faults.FAULTS)
+@pytest.mark.parametrize("fault", faults.applicable(1))
 def test_a_fault_under_the_timed_path_makes_the_run_incorrect(tiny, cell,
                                                               fault):
     root, manifest = tiny
-
-    def plant(ent, ctx):
-        return faults.planted(fault, ent, int(ctx.scene["faces"].shape[0]))
-
     r = harness.run_cell(root, manifest, cell, SEED, 0.2, 0,
                          time.perf_counter(), device="cpu",
-                         bench=root / "benchmark", plant=plant)
+                         bench=root / "benchmark", fault=fault)
     assert r["correct"] is False, r["checks"]
     assert r["failed"] == 1
     from spray_tpu_torch.integrators import wavefront  # noqa: PLC0415
@@ -207,7 +204,9 @@ def test_a_cell_is_added_by_files_and_entries_only(tmp_path):
     manifest["workloads"].append({"name": cell, "config": "tiny-brute",
                                   "traffic": "frame-spp2b1", "chips": 1,
                                   "why": "a test"})
-    manifest["end_to_end"][1]["workloads"].append(cell)
+    for m in manifest["end_to_end"]:
+        if m["name"] == "frame_ms":
+            m["workloads"].append(cell)
     manifest["per_layer"].append({"name": "build_ms", "unit": "ms",
                                   "better": "lower", "source": "host_clock",
                                   "layer": "host build", "moves": "setup_s",
@@ -221,13 +220,22 @@ def test_a_cell_is_added_by_files_and_entries_only(tmp_path):
         assert r["correct"] is True
         assert ("build_ms" in r["metrics"]) == bool(trace)
         assert ("frame_ms" in r["metrics"]) == (not trace)
+        assert ("setup_s" in r["metrics"]) == (not trace)
 
 
 @pytest.mark.card
 def test_each_cell_runs_correct_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA card")
+    cards = torch.cuda.device_count()
+    chips = {w["name"]: w["chips"] for w in MANIFEST["workloads"]}
+    skipped = [cell for cell in CELLS if chips[cell] > cards]
+    if skipped:
+        warnings.warn(f"skipped, more chips than the {cards} card(s) here: "
+                      f"{', '.join(skipped)}", stacklevel=1)
     for cell in CELLS:
+        if cell in skipped:
+            continue
         p = subprocess.run(
             [sys.executable, "benchmark/run.py", "--workload", cell, "--seed",
              str(SEED), "--seconds", "2", "--trace", "0"],

@@ -17,9 +17,11 @@ def p95_ms(step_times_s):
     return times[max(0, math.ceil(0.95 * len(times)) - 1)] * 1e3
 
 
-def run_window(step, seconds, clock):
+def run_window(step, seconds, clock, agree=None):
     """Call step() back to back until `seconds` have passed since the first
-    call began: (step times in s, window s, last output)."""
+    call began: (step times in s, window s, last output).  In a cell of
+    many ranks, `agree(done)` hands rank 0's decision to every rank, after
+    each step's end time is read, so that all step as often as rank 0."""
     times = []
     start = clock()
     while True:
@@ -27,5 +29,8 @@ def run_window(step, seconds, clock):
         out = step()
         t1 = clock()
         times.append(t1 - t0)
-        if t1 - start >= seconds:
+        done = t1 - start >= seconds
+        if agree is not None:
+            done = agree(done)
+        if done:
             return times, t1 - start, out
