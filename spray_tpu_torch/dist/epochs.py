@@ -17,6 +17,15 @@
     global count once every `rounds_per_check` rounds: that read is the
     loop's host sync, counted in `dist.collectives["host_syncs"]`.
 
+While a profiler records, a round's stretches are the spans (`trace`)
+`spray.dist.route` (the nearest unprocessed domain, its owner and the
+send slots), `.exchange` (each `all_to_all`), `.trace` (the owner's local
+trace), `.commit` (the home-side update) and `.reduce` (the liveness
+`all_reduce`); a frame's image and ray count are gathered in
+`spray.dist.gather`; each host read is a `spray.sync.dist`.  A call adds
+its rounds to the counter `dist_rounds` and its rays exchanged (the
+device sum the loop already keeps) to `rays_exchanged`.
+
 The local trace runs the CUDA cluster kernels one resident page at a time
 (`_local_trace_cluster`: `traverse.nearest_slot` and `traverse.anyhit` on a
 one-entry list, one launch per page), or the batched-torch BVH walk of each
@@ -31,9 +40,12 @@ writes and is never read back into a real ray.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .. import trace
 from ..bvh.traverse import DeviceBVH
 from ..core import geom
 from ..core.types import Hits
@@ -161,19 +173,22 @@ class CollectiveEpochIntersector:
         ndev, b, m = self.mesh.size, self.bucket, o.shape[0]
         dev = o.device
         slots = ndev * b
-        entry = domain_entries(self.boxes, o, d, tmin, tmax)  # (m, D)
-        # home state: m rays and one spare row (index m) for dropped writes
-        best_t = torch.cat([tmax, tmax.new_zeros(1)])
-        best_prim = torch.full((m + 1,), -1, dtype=torch.int32, device=dev)
-        found = torch.zeros(m + 1, dtype=torch.bool, device=dev)
-        processed = torch.zeros((m + 1, entry.shape[1]), dtype=torch.bool,
-                                device=dev)
-        lanes = torch.arange(m, device=dev)
-        ranks = torch.arange(ndev, device=dev)
-        # slot s goes to rank s // b: that owner's domains
-        owner_doms = self.owner[None, :] == (torch.arange(slots, device=dev)
-                                             // b)[:, None]
-        exchanged = torch.zeros((), dtype=torch.int64, device=dev)
+        with trace.span("spray.dist.route"):
+            entry = domain_entries(self.boxes, o, d, tmin, tmax)  # (m, D)
+            # home state: m rays and one spare row (index m) for dropped
+            # writes
+            best_t = torch.cat([tmax, tmax.new_zeros(1)])
+            best_prim = torch.full((m + 1,), -1, dtype=torch.int32,
+                                   device=dev)
+            found = torch.zeros(m + 1, dtype=torch.bool, device=dev)
+            processed = torch.zeros((m + 1, entry.shape[1]), dtype=torch.bool,
+                                    device=dev)
+            lanes = torch.arange(m, device=dev)
+            ranks = torch.arange(ndev, device=dev)
+            # slot s goes to rank s // b: that owner's domains
+            owner_doms = self.owner[None, :] == (
+                torch.arange(slots, device=dev) // b)[:, None]
+            exchanged = torch.zeros((), dtype=torch.int64, device=dev)
 
         def needed():
             live = ~(found[:m] & any_hit)
@@ -182,48 +197,65 @@ class CollectiveEpochIntersector:
 
         def round_():
             nonlocal exchanged
-            masked = torch.where(needed(), entry, geom.INF)
-            nearest_dom = torch.argmin(masked, dim=1)  # first index of a tie
-            has = torch.isfinite(torch.gather(masked, 1, nearest_dom[:, None]))[:, 0]
-            dest = torch.where(has, self.owner[nearest_dom], ndev)
-            # <= b rays per owner: the stable rank of a ray among those with
-            # its owner (a cumsum of the one-hot owner), slot owner * b + rank
-            rank = torch.cumsum((dest[:, None] == ranks[None]).to(torch.int32),
-                                dim=0) - 1
-            rank_i = torch.gather(rank, 1, torch.clamp(dest, max=ndev - 1)[:, None])[:, 0]
-            sel = (dest < ndev) & (rank_i < b)
-            slot = torch.where(sel, dest * b + rank_i, slots)  # unsent: spare slot
-            send = torch.full((slots + 1,), m, dtype=torch.int64, device=dev)
-            send.scatter_(0, slot, lanes)
-            send = send[:slots]  # empty slots hold m: the spare state row
-            valid = send < m
-            src = torch.clamp(send, max=m - 1)
-            win = torch.where(valid, best_t[send], 0.0)
-            rays = all_to_all(torch.cat(
-                [o[src], d[src], tmin[src][:, None], win[:, None]], dim=1),
-                self.mesh)
-            t, p, f = self._trace(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
-                                  rays[:, 7].contiguous(), any_hit)
-            # t's bits, prim and the found flag as int32: one exchange back
-            back = all_to_all(torch.stack(
-                [t.view(torch.int32), p.to(torch.int32), f.to(torch.int32)],
-                dim=1), self.mesh)
-            tt, pp = back[:, 0].view(torch.float32), back[:, 1]
-            hit = (back[:, 2] != 0) & valid
-            cur_t = best_t[send]
-            upd = hit & (tt < cur_t)
-            best_t[send] = torch.where(upd, tt, cur_t)
-            best_prim[send] = torch.where(upd, pp, best_prim[send])
-            found[send] = found[send] | hit
-            processed[send] = processed[send] | (valid[:, None] & owner_doms)
-            counts = torch.stack([needed().any(dim=1).sum(), valid.sum()])
-            all_reduce(counts, self.mesh)
-            exchanged = exchanged + counts[1]
+            with trace.span("spray.dist.route"):
+                masked = torch.where(needed(), entry, geom.INF)
+                nearest_dom = torch.argmin(masked, dim=1)  # first of a tie
+                has = torch.isfinite(
+                    torch.gather(masked, 1, nearest_dom[:, None]))[:, 0]
+                dest = torch.where(has, self.owner[nearest_dom], ndev)
+                # <= b rays per owner: the stable rank of a ray among those
+                # with its owner (a cumsum of the one-hot owner), slot
+                # owner * b + rank
+                rank = torch.cumsum(
+                    (dest[:, None] == ranks[None]).to(torch.int32), dim=0) - 1
+                rank_i = torch.gather(
+                    rank, 1, torch.clamp(dest, max=ndev - 1)[:, None])[:, 0]
+                sel = (dest < ndev) & (rank_i < b)
+                # unsent: the spare slot
+                slot = torch.where(sel, dest * b + rank_i, slots)
+                send = torch.full((slots + 1,), m, dtype=torch.int64,
+                                  device=dev)
+                send.scatter_(0, slot, lanes)
+                send = send[:slots]  # empty slots hold m: the spare state row
+                valid = send < m
+                src = torch.clamp(send, max=m - 1)
+                win = torch.where(valid, best_t[send], 0.0)
+                rows = torch.cat(
+                    [o[src], d[src], tmin[src][:, None], win[:, None]], dim=1)
+            with trace.span("spray.dist.exchange"):
+                rays = all_to_all(rows, self.mesh)
+            with trace.span("spray.dist.trace"):
+                t, p, f = self._trace(rays[:, 0:3], rays[:, 3:6], rays[:, 6],
+                                      rays[:, 7].contiguous(), any_hit)
+                # t's bits, prim and the found flag as int32: one exchange
+                # back
+                rows = torch.stack([t.view(torch.int32), p.to(torch.int32),
+                                    f.to(torch.int32)], dim=1)
+            with trace.span("spray.dist.exchange"):
+                back = all_to_all(rows, self.mesh)
+            with trace.span("spray.dist.commit"):
+                tt, pp = back[:, 0].view(torch.float32), back[:, 1]
+                hit = (back[:, 2] != 0) & valid
+                cur_t = best_t[send]
+                upd = hit & (tt < cur_t)
+                best_t[send] = torch.where(upd, tt, cur_t)
+                best_prim[send] = torch.where(upd, pp, best_prim[send])
+                found[send] = found[send] | hit
+                processed[send] = processed[send] | (valid[:, None]
+                                                     & owner_doms)
+            with trace.span("spray.dist.reduce"):
+                counts = torch.stack([needed().any(dim=1).sum(), valid.sum()])
+                all_reduce(counts, self.mesh)
+                exchanged = exchanged + counts[1]
             return counts[0]
 
-        need = all_reduce(needed().any(dim=1).sum().reshape(1), self.mesh)[0]
+        with trace.span("spray.dist.reduce"):
+            need = all_reduce(needed().any(dim=1).sum().reshape(1),
+                              self.mesh)[0]
         collectives["host_syncs"] += 1
-        need, epoch = int(need), 0
+        with trace.sync("dist"):
+            need = int(need)
+        epoch = 0
         while epoch < self.max_epochs and need > 0:
             # rounds_per_check rounds per read of the global count; a round
             # after convergence moves empty buckets and changes nothing
@@ -231,8 +263,11 @@ class CollectiveEpochIntersector:
                 global_need = round_()
                 epoch += 1
             collectives["host_syncs"] += 1
-            need = int(global_need)
+            with trace.sync("dist"):
+                need = int(global_need)
         self._stat_log.append((epoch, exchanged))
+        trace.count("dist_rounds", epoch)
+        trace.count("rays_exchanged", exchanged)
         return {"best_t": best_t[:m], "best_prim": best_prim[:m],
                 "found": found[:m]}
 
@@ -331,11 +366,17 @@ def make_insitu_renderer(scene, camera, cfg, mesh=None, n_domains=None,
                          bucket=4096, leaf_size=8, max_epochs=64,
                          backend="cluster", device=None):
     """Fully distributed renderer: pixels sharded, domains sharded (in
-    situ), epochs exchange rays between the ranks.  Returns render() -> the
-    (H, W, 3) numpy image on every rank; render.local() -> this rank's
-    (pixel ids, radiance); both collective.  After each call
+    situ), epochs exchange rays between the ranks.  Returns render(seed=None)
+    -> the (H, W, 3) numpy image on every rank; render.local(seed=None) ->
+    this rank's (pixel ids, radiance); both collective.  After each call
     render.last_stats holds trace_activations (summed over the ranks),
     epochs and rays_exchanged (summed over the samples).
+
+    A call renders the frame of `cfg`, or with `seed` that of
+    `dataclasses.replace(cfg, seed=seed)`: new samples over the same
+    partition, pages and scene arrays, built once here, the image
+    bit-equal to a renderer built with that seed.  Every rank passes the
+    same seed, as it makes the call.
 
     backend "cluster" (default) traces with the CUDA cluster kernels (their
     plain versions on the CPU); "jnp" walks per-domain BVHs in batched
@@ -344,36 +385,50 @@ def make_insitu_renderer(scene, camera, cfg, mesh=None, n_domains=None,
     su = _insitu_setup(scene, mesh, n_domains, leaf_size, backend)
     npix, pad, order = _insitu_pixels(camera, mesh.size)
     mine, pix = _rank_pixels(order, mesh)
-    arrays = wavefront.make_scene_arrays(scene, mesh.device)
+    arrays = wavefront.scene_arrays_for(scene, mesh.device)
 
-    def run():
+    def run(seed):
+        frame = cfg if seed is None else dataclasses.replace(cfg, seed=seed)
         inter = _intersector(su, mesh, bucket, max_epochs, su["tri_soa"])
         acc = torch.zeros((pix.shape[0], 3), dtype=torch.float32,
                           device=mesh.device)
         nrays = torch.zeros((), dtype=torch.int64, device=mesh.device)
         epochs, exchanged = 0, 0
-        for s in range(cfg.spp):
+        for s in range(frame.spp):
             inter.reset_stats()
-            rad, nr = wavefront.sample_wavefront(arrays, camera, cfg, inter, s,
-                                                 pix, with_stats=True)
+            rad, nr = wavefront.sample_wavefront(arrays, camera, frame, inter,
+                                                 s, pix, with_stats=True)
             e, x = inter.drain_stats()
             acc, nrays = acc + rad, nrays + nr
             epochs, exchanged = epochs + e, exchanged + x
-        all_reduce(nrays, mesh)
-        render.last_stats = {"trace_activations": int(nrays),
-                             "epochs": int(epochs),
-                             "rays_exchanged": int(exchanged)}
-        return acc / float(cfg.spp)
+        with trace.span("spray.glue.accumulate"):
+            with trace.span("spray.dist.gather"):
+                all_reduce(nrays, mesh)
+            with trace.sync("dist"):
+                render.last_stats = {"trace_activations": int(nrays),
+                                     "epochs": int(epochs),
+                                     "rays_exchanged": int(exchanged)}
+            return acc / float(frame.spp)
 
-    def render():
-        acc = all_gather(run(), mesh).cpu().numpy()
-        img = np.zeros((npix + pad, 3), np.float32)
-        img[order] = acc
-        return img[:npix].reshape(camera.height, camera.width, 3)
+    def render(seed=None):
+        with trace.span("spray.frame"):
+            acc = run(seed)
+            with trace.span("spray.glue.accumulate"):
+                with trace.span("spray.dist.gather"):
+                    acc = all_gather(acc, mesh)
+                with trace.sync("dist"):
+                    acc = acc.cpu().numpy()
+                img = np.zeros((npix + pad, 3), np.float32)
+                img[order] = acc
+            return img[:npix].reshape(camera.height, camera.width, 3)
 
-    def render_local():
-        """This rank's (pixel ids, radiance): its shard of the frame."""
-        return mine, run().cpu().numpy()
+    def render_local(seed=None):
+        """This rank's (pixel ids, radiance): its shard of the frame of
+        `seed` (see make_insitu_renderer)."""
+        with trace.span("spray.frame"):
+            acc = run(seed)
+            with trace.sync("dist"):
+                return mine, acc.cpu().numpy()
 
     render.last_stats = None
     render.local = render_local

@@ -11,14 +11,18 @@ inside its `spray.step` or `spray.frame` span.
 
 Span names are `spray.<layer>.<what>`, with the layers of PERF.md:
 `spray.step` / `spray.frame` (entry), `spray.glue.*` (wavefront glue),
-`spray.sched.*` (scheduler), `spray.residency.*`, `spray.autograd.*`, and
+`spray.sched.*` (scheduler), `spray.residency.*`, `spray.autograd.*`,
+`spray.dist.*` (collective epochs: `route`, `exchange`, `trace`, `commit`,
+`reduce` of the in-situ epoch loop, `gather` of its frame), and
 `spray.sync.<site>` around each host read of a device value.
 
 Counters (`read()`): `live_rays` (the rays each sample wavefront traces,
 the sums that make `rays_traced`), `scene_builds` (1 for each build of a
-scene's scene-only shading inputs, 0 for each reuse), and `node_visits`,
-`leaf_visits`, `tri_tests`, which the traversal kernels add into one (3,)
-int64 device buffer (`kernel_counters`).  Device values are kept as they
+scene's scene-only shading inputs, 0 for each reuse), `dist_rounds` (the
+rounds of each collective epoch loop), `rays_exchanged` (the rays those
+rounds sent, summed over the ranks), and `node_visits`, `leaf_visits`,
+`tri_tests`, which the traversal kernels add into one (3,) int64 device
+buffer (`kernel_counters`).  Device values are kept as they
 are and summed only in `read()`, after the window: a counter adds no host
 read and no launch to the traced path.  The totals start anew at the first
 span or count after a profiler starts (once a span, count or `read()` has
