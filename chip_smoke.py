@@ -130,7 +130,8 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      printed beside BENCH_extra.json's; (f)
      tests_gpu/parity_gate.py as its own process (exit 0); (g)
      tests_gpu/insitu_gate.py as its own process (exit 0: the in-situ
-     frame within 1e-4 and 3x of the fast path's);
+     frame within 1e-4 and 3x of the fast path's, and route_slots_kernel
+     equal to its plain version, one launch a round);
  10. the form of the frame, which make_render_fn chooses from the card's
      free memory, on the phase-4 frame (512x512, spp 4) through the
      default intersector: (a) with the card's free memory it takes the

@@ -7,7 +7,10 @@
     OWNER rank; up to `bucket` rays per (source, owner) pair are packed
     into a fixed-shape buffer and exchanged with ONE `all_to_all_single`
     (equal splits of `bucket` rows per rank).  Overflow rays stay queued
-    for a later epoch.
+    for a later epoch.  The send layout (each ray's slot: its owner's
+    bucket, at its rank in lane order among that owner's rays) is one
+    call of `kernels.route.route_slots`, the CUDA `route_slots_kernel` on
+    the card (the reference's one-hot cumsum is a serial scan there).
   - The owner traces its arrivals against ALL its resident domains with the
     ray's best-t window (speculation), so the home rank marks the owner's
     whole domain range processed when the results come back through the
@@ -32,10 +35,10 @@ one-entry list, one launch per page), or the batched-torch BVH walk of each
 resident domain (`_local_trace`, backend "jnp", the cross-check).  A world
 of one rank still runs every collective through its group.
 
-JAX drops the writes of empty send slots and of unsent rays by pointing
-them out of range (`mode="drop"`); torch's scatters raise there instead, so
-the send buffer and the home state carry one spare row that takes those
-writes and is never read back into a real ray.
+JAX drops the writes of empty send slots by pointing them out of range
+(`mode="drop"`); torch's scatters raise there instead, so an empty slot
+holds m and the home state carries one spare row (index m) that takes
+those writes and is never read back into a real ray.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..core import geom
 from ..core.types import Hits
 from ..diff import DetachedIntersector, diff_scene_arrays, grads_of, scene_consts
 from ..integrators import wavefront
-from ..kernels import traverse
+from ..kernels import route, traverse
 from ..kernels.common import pad_rays, tile_swizzle_order
 from ..sched.multidomain import (
     BVH_FIELDS, DeviceDomainSet, domain_entries, trace_domain,
@@ -183,8 +186,6 @@ class CollectiveEpochIntersector:
             found = torch.zeros(m + 1, dtype=torch.bool, device=dev)
             processed = torch.zeros((m + 1, entry.shape[1]), dtype=torch.bool,
                                     device=dev)
-            lanes = torch.arange(m, device=dev)
-            ranks = torch.arange(ndev, device=dev)
             # slot s goes to rank s // b: that owner's domains
             owner_doms = self.owner[None, :] == (
                 torch.arange(slots, device=dev) // b)[:, None]
@@ -203,20 +204,10 @@ class CollectiveEpochIntersector:
                 has = torch.isfinite(
                     torch.gather(masked, 1, nearest_dom[:, None]))[:, 0]
                 dest = torch.where(has, self.owner[nearest_dom], ndev)
-                # <= b rays per owner: the stable rank of a ray among those
-                # with its owner (a cumsum of the one-hot owner), slot
-                # owner * b + rank
-                rank = torch.cumsum(
-                    (dest[:, None] == ranks[None]).to(torch.int32), dim=0) - 1
-                rank_i = torch.gather(
-                    rank, 1, torch.clamp(dest, max=ndev - 1)[:, None])[:, 0]
-                sel = (dest < ndev) & (rank_i < b)
-                # unsent: the spare slot
-                slot = torch.where(sel, dest * b + rank_i, slots)
-                send = torch.full((slots + 1,), m, dtype=torch.int64,
-                                  device=dev)
-                send.scatter_(0, slot, lanes)
-                send = send[:slots]  # empty slots hold m: the spare state row
+                # <= b rays per owner, in lane order: slot owner * b + the
+                # ray's rank among those with its owner (`route_slots_kernel`);
+                # empty slots hold m: the spare state row
+                send = route.route_slots(dest, ndev, b)
                 valid = send < m
                 src = torch.clamp(send, max=m - 1)
                 win = torch.where(valid, best_t[send], 0.0)

@@ -59,6 +59,8 @@ _SIGNATURES = {
     # and updated in place), tests, stream
     "spray_binned_anyhit": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                             _I, _P, _P, _P],
+    # dest, m, ndev, bucket, table (scratch), send, stream
+    "spray_route_slots": [_P, _I, _I, _I, _P, _P, _P],
 }
 
 _libs = {}

@@ -111,7 +111,8 @@ def test_binned_scene_and_brute_table_equal(name):
 
 LAUNCHERS = ["spray_nearest", "spray_anyhit", "spray_nearest_slot",
              "spray_brute_nearest", "spray_brute_anyhit",
-             "spray_binned_nearest", "spray_binned_anyhit"]
+             "spray_binned_nearest", "spray_binned_anyhit",
+             "spray_route_slots"]
 
 
 @pytest.mark.parametrize("fn", LAUNCHERS)

@@ -5,7 +5,8 @@ bounces 2, 8 domains, bucket 16,384.  The in-situ image is within the
 gate's 1e-4 of the fast path's, the line has the reference gate's keys,
 and its epochs and rays exchanged equal the reference's
 make_insitu_renderer(...).last_stats on the same scene at a one-device
-mesh.  The ratio is a wall-clock number on a CPU: printed, not asserted."""
+mesh.  The ratio is a wall-clock number on a CPU: printed, not asserted.
+The gate's router check runs too, on the plain version."""
 
 import numpy as np
 import pytest
@@ -51,3 +52,16 @@ def test_gate_counters_match_reference(port):
     assert np.isfinite(img).all() and img.mean() > 0
     assert port["epochs"] == render.last_stats["epochs"] > 0
     assert port["exchanged"] == render.last_stats["rays_exchanged"] > 0
+
+
+def test_route_check_on_the_cpu():
+    """The gate's router check in a world of one gloo rank: every case of
+    the plain version equals itself (the kernel is the card's), no launch
+    is counted, and no device time is reported from the CPU."""
+    res = G.route_check(wisp_cloud(**SCENE), make_camera(**CAM),
+                        RenderConfig(**CFG), device="cpu")
+    assert res["ok"] and set(res["cases"]) == set(G.ROUTE_CASES)
+    assert all(res["cases"].values())
+    assert res["frame_launches"] == 0 and res["frame_rounds"] > 0
+    for k in ("kernel_ms", "call_ms", "bound_ms", "plain_ms", "library_ms"):
+        assert res[k] is None
