@@ -29,11 +29,13 @@ trace), `.commit` (the home-side update) and `.reduce` (the liveness
 its rounds to the counter `dist_rounds` and its rays exchanged (the
 device sum the loop already keeps) to `rays_exchanged`.
 
+The needed-domain and nearest-needed rules of a round and the one-page
+trace are `sched/multidomain.py`'s, shared with the out-of-core scheduler.
 The local trace runs the CUDA cluster kernels one resident page at a time
-(`_local_trace_cluster`: `traverse.nearest_slot` and `traverse.anyhit` on a
-one-entry list, one launch per page), or the batched-torch BVH walk of each
-resident domain (`_local_trace`, backend "jnp", the cross-check).  A world
-of one rank still runs every collective through its group.
+(`_local_trace_cluster`: `PageWave`, the slot kernel or the any-hit kernel
+on a one-entry list, one launch per page), or the batched-torch BVH walk
+of each resident domain (`_local_trace`, backend "jnp", the cross-check).
+A world of one rank still runs every collective through its group.
 
 JAX drops the writes of empty send slots by pointing them out of range
 (`mode="drop"`); torch's scatters raise there instead, so an empty slot
@@ -49,15 +51,14 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..bvh.traverse import DeviceBVH
-from ..core import geom
 from ..core.types import Hits
 from ..diff import DetachedIntersector, diff_scene_arrays, grads_of, scene_consts
 from ..integrators import wavefront
 from ..kernels import route, traverse
-from ..kernels.common import pad_rays, tile_swizzle_order
+from ..kernels.common import tile_swizzle_order
 from ..sched.multidomain import (
-    BVH_FIELDS, DeviceDomainSet, domain_entries, trace_domain,
+    BVH_FIELDS, DeviceDomainSet, PageWave, domain_bvh, domain_entries,
+    nearest_needed, needed, trace_domain,
 )
 from . import all_gather, all_reduce, all_to_all, collectives
 from .rayshard import mesh_for
@@ -73,8 +74,7 @@ def _local_trace(local, leaf_size, o, d, tmin, window, any_hit):
     bp = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     found = torch.zeros(n, dtype=torch.bool, device=o.device)
     for k in range(local["v0"].shape[0]):
-        dbvh = DeviceBVH(**{f: local[f][k] for f in BVH_FIELDS},
-                         leaf_size=leaf_size)
+        dbvh = domain_bvh({f: v[k] for f, v in local.items()}, leaf_size)
         win = torch.where(found & any_hit, torch.zeros_like(bt), bt)
         t, p, _, _, f = trace_domain(dbvh, o, d, tmin, win, any_hit=any_hit)
         upd = f if any_hit else f & (t < bt)
@@ -87,34 +87,23 @@ def _local_trace(local, leaf_size, o, d, tmin, window, any_hit):
 
 def _local_trace_cluster(pages, depth, o, d, tmin, window, any_hit):
     """Cluster-kernel local trace: the arrivals padded to whole packets
-    once, then one launch per resident page, in page order: the slot kernel
-    (`traverse.nearest_slot`) for nearest, the any-hit kernel on a
-    one-entry list for occlusion.  A packet with no live window is dead
-    (`live_buckets`).  The update is strict (t < best t), so the first page
-    wins a tie.  pages: dict of (Dl, ...) tensors {bounds, meta, w,
-    tri_ids} with GLOBAL tri ids.  Returns (t, prim, found)."""
+    once (`PageWave`), then one launch per resident page, in page order:
+    the slot kernel for nearest, the any-hit kernel on a one-entry list for
+    occlusion (a found ray's window is empty).  The update is strict (t <
+    best t), so the first page wins a tie.  pages: dict of (Dl, ...)
+    tensors {bounds, meta, w, tri_ids} with GLOBAL tri ids.  Returns (t,
+    prim, found)."""
     n = o.shape[0]
-    po, pd, ptmin, pwin = pad_rays(o, d, tmin, window, traverse.PACKET)
-    npad = pwin.shape[0]
+    wave = PageWave(o, d, tmin, window)
     bt = window
     bp = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     found = torch.zeros(n, dtype=torch.bool, device=o.device)
     for j in range(pages["w"].shape[0]):
-        page = tuple(pages[k][j:j + 1] for k in ("bounds", "meta", "w"))
-        win = torch.where(found & any_hit, torch.zeros_like(bt), bt)
-        pwin = torch.cat([win, win.new_zeros(npad - n)])
-        bucket = traverse.live_buckets(pwin.view(-1, traverse.PACKET))
+        page = {k: v[j] for k, v in pages.items()}
         if any_hit:
-            occ = traverse.anyhit(bucket[:, None].contiguous(), po, pd, ptmin,
-                                  pwin, *page, traverse.PACKET, depth)
-            found = found | (occ[:n] != 0)
+            found = found | wave.trace(page, ~found, bt, True, depth)
             continue
-        t, code = traverse.nearest_slot(bucket, po, pd, ptmin, pwin, *page,
-                                        traverse.PACKET, depth)
-        t, code = t[:n], code[:n]
-        prim = torch.where(code >= 0,
-                           pages["tri_ids"][j][torch.clamp(code, min=0).long()],
-                           -1).to(torch.int32)
+        t, prim = wave.trace(page, None, bt, False, depth)
         f = prim >= 0
         upd = f & (t < bt)
         bt = torch.where(upd, t, bt)
@@ -191,18 +180,15 @@ class CollectiveEpochIntersector:
                 torch.arange(slots, device=dev) // b)[:, None]
             exchanged = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def needed():
-            live = ~(found[:m] & any_hit)
-            return (torch.isfinite(entry) & ~processed[:m]
-                    & (entry < best_t[:m, None]) & live[:, None])
+        def need_now():
+            return needed(entry, processed[:m], best_t[:m], found[:m],
+                          any_hit)
 
         def round_():
             nonlocal exchanged
             with trace.span("spray.dist.route"):
-                masked = torch.where(needed(), entry, geom.INF)
-                nearest_dom = torch.argmin(masked, dim=1)  # first of a tie
-                has = torch.isfinite(
-                    torch.gather(masked, 1, nearest_dom[:, None]))[:, 0]
+                # the nearest needed domain, the first of a tie
+                nearest_dom, has, _ = nearest_needed(need_now(), entry)
                 dest = torch.where(has, self.owner[nearest_dom], ndev)
                 # <= b rays per owner, in lane order: slot owner * b + the
                 # ray's rank among those with its owner (`route_slots_kernel`);
@@ -235,13 +221,13 @@ class CollectiveEpochIntersector:
                 processed[send] = processed[send] | (valid[:, None]
                                                      & owner_doms)
             with trace.span("spray.dist.reduce"):
-                counts = torch.stack([needed().any(dim=1).sum(), valid.sum()])
+                counts = torch.stack([need_now().any(dim=1).sum(), valid.sum()])
                 all_reduce(counts, self.mesh)
                 exchanged = exchanged + counts[1]
             return counts[0]
 
         with trace.span("spray.dist.reduce"):
-            need = all_reduce(needed().any(dim=1).sum().reshape(1),
+            need = all_reduce(need_now().any(dim=1).sum().reshape(1),
                               self.mesh)[0]
         collectives["host_syncs"] += 1
         with trace.sync("dist"):

@@ -14,20 +14,24 @@ closer domain has been processed.  As in the reference:
   - commit is implicit: a ray is done when `needed` is empty, and its best
     (t, prim) then satisfies the commit invariant.
 
-Two backends, as in the reference.  The cluster backend: each slot's
-trace is one launch of the CUDA `nearest_slot` kernel (or of `anyhit` with
-a one-entry domain list for occlusion rays) on the slot's cluster pages;
-the reference's device-side `lax.while_loop` over epochs becomes a Python
-loop over device tensors that reads its `more_work` flag once per epoch:
-one host sync per epoch, where the reference pays none.  The jnp backend
-(the reference's name, kept so that the two APIs match): each slot's
-trace walks the domain's BVH (`bvh/traverse.py`, a `partition_scene`
-domain set), with the host-driven per-epoch loop (`epoch_step`).
+The needed-domain and nearest-needed rules and the one-page trace are
+`sched/multidomain.py`'s, shared with the in-situ epochs.  One host loop
+(`OOCIntersector._run_epochs`) and one epoch step (`epoch_batch`) serve
+every mode and backend.  Two backends, as in the reference.  The cluster
+backend: each slot's trace is one launch of the CUDA `nearest_slot` kernel
+(or of `anyhit` with a one-entry domain list for occlusion rays) on the
+slot's cluster pages (`PageWave`); the reference's device-side
+`lax.while_loop` over epochs becomes a Python loop over device tensors
+that reads its `more_work` flag once per epoch: one host sync per epoch,
+where the reference pays none.  The jnp backend (the reference's name,
+kept so that the two APIs match): each slot's trace walks the domain's BVH
+(`bvh/traverse.py`, a `partition_scene` domain set), one epoch a batch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 
@@ -35,15 +39,15 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..bvh.traverse import DeviceBVH
 from ..core.device import resolve_device
 from ..core.types import Hits
 from ..kernels import traverse
-from ..kernels.common import pad_rays
-from ..kernels.traverse import PACKET
 from ..kernels.multidomain import _live_partition, build_cluster_domains
 from ..residency.manager import ResidencyManager
-from .multidomain import BVH_FIELDS, DeviceDomainSet, domain_entries, trace_domain
+from .multidomain import (
+    BVH_FIELDS, DeviceDomainSet, PageWave, domain_entries, nearest_needed,
+    needed, trace_domain,
+)
 
 PROBE_MB_S = 50.0  # host->device rate below which lookahead turns itself off
 EPOCH_LOG_ROWS = 4096  # rows of `epoch_log` kept: the newest batches
@@ -97,29 +101,16 @@ def init_state(dset, o, d, tmin, tmax, occ_mode=False):
     )
 
 
-def _needed(entry_t, processed, best_t, found, occ_mode):
-    need = torch.isfinite(entry_t) & ~processed & (entry_t < best_t[:, None])
-    return need & ~found[:, None] if occ_mode else need
-
-
 def needed_mask(state):
     """(N, D) ray-needs-domain mask == implicit queue membership."""
-    return _needed(state.entry_t, state.processed, state.best_t, state.found,
-                   state.occ_mode)
-
-
-def _nearest_needed(need, entry_t):
-    """(nearest needed domain, whether there is one) per ray, plus the
-    masked entries; ties go to the lowest domain id."""
-    masked = torch.where(need, entry_t, torch.full_like(entry_t, np.inf))
-    mn, nearest = masked.min(dim=1)
-    return nearest, torch.isfinite(mn), masked
+    return needed(state.entry_t, state.processed, state.best_t, state.found,
+                  state.occ_mode)
 
 
 def queue_counts(state):
     """(D,) queue sizes: each ray is queued for its nearest unprocessed
     overlapped domain only (the reference's allgathered counts)."""
-    nearest, has, _ = _nearest_needed(needed_mask(state), state.entry_t)
+    nearest, has, _ = nearest_needed(needed_mask(state), state.entry_t)
     return torch.bincount(nearest[has], minlength=state.entry_t.shape[1])
 
 
@@ -127,7 +118,7 @@ def second_queue_counts(state):
     """(D,) counts of each ray's second-nearest needed domain: where it goes
     once its nearest is traced, unless it commits first (the prefetch
     predictor)."""
-    nearest, _, masked = _nearest_needed(needed_mask(state), state.entry_t)
+    nearest, _, masked = nearest_needed(needed_mask(state), state.entry_t)
     masked2 = masked.scatter(1, nearest[:, None], np.inf)
     mn2, second = masked2.min(dim=1)
     return torch.bincount(second[torch.isfinite(mn2)],
@@ -140,165 +131,79 @@ def schedule_top_k(counts, k):
     return [int(d) for d in order[:k] if counts[d] > 0]
 
 
-class _Wave:
-    """A wavefront padded once to whole packets; each slot trace rewrites
-    only the window."""
-
-    def __init__(self, state):
-        self.n = state.o.shape[0]
-        self.o, self.d, self.tmin, win = pad_rays(
-            state.o, state.d, state.tmin, state.best_t, PACKET)
-        self.win = torch.zeros_like(win)
-
-    def trace(self, slot, live, best_t, any_hit, depth):
-        """One slot launch over the rays with `live` windows.  Returns
-        occluded (N,) bool for any_hit, else (t, prim) with prim -1 where
-        the slot has no hit."""
-        n = self.n
-        self.win[:n] = torch.where(live, best_t, torch.zeros_like(best_t))
-        bucket = traverse.live_buckets(self.win.view(-1, PACKET))
-        pages = (slot["bounds"][None], slot["meta"][None], slot["w"][None])
-        if any_hit:
-            occ = traverse.anyhit(bucket[:, None].contiguous(), self.o,
-                                  self.d, self.tmin, self.win, *pages,
-                                  PACKET, depth)
-            return occ[:n] != 0
-        t, code = traverse.nearest_slot(bucket, self.o, self.d, self.tmin,
-                                        self.win, *pages, PACKET, depth)
-        t, code = t[:n], code[:n]
-        prim = torch.where(code >= 0,
-                           slot["tri_ids"][torch.clamp(code, min=0).long()], -1)
-        return t, prim.to(torch.int32)
+def _derive(state, best_t, found, processed, speculate, spec_bound):
+    """(need, nearest, has_need) of an epoch; spec_bound=k (with speculate)
+    keeps only each ray's k nearest needed domains."""
+    need = needed(state.entry_t, processed, best_t, found, state.occ_mode)
+    if spec_bound is not None and speculate:
+        ent = torch.where(need, state.entry_t,
+                          torch.full_like(state.entry_t, np.inf))
+        k = min(spec_bound, need.shape[1]) - 1
+        thr = torch.sort(ent, dim=1).values[:, k]
+        need = need & (state.entry_t <= thr[:, None])
+    nearest, has_need, _ = nearest_needed(need, state.entry_t)
+    return need, nearest, has_need
 
 
-def _trace_slots(state, wave, slots, need, nearest, has_need, speculate,
-                 any_hit, depth, carry):
-    """Trace every (domain id, pages) slot once.  carry = (best_t,
-    best_prim, found, processed, traced, spec) device tensors; returns the
-    updated carry."""
-    best_t, best_prim, found, processed, traced, spec = carry
-    for d_id, slot in slots:
-        with trace.span("spray.sched.slot"):
-            at_nearest = (nearest == d_id) & has_need
-            active = need[:, d_id]
-            if not speculate:
-                active = active & at_nearest
-            traced = traced + active.sum()
-            spec = spec + (active & ~at_nearest).sum()
-            live = active & ~found if state.occ_mode else active
-            if any_hit:
-                f = wave.trace(slot, live, best_t, True, depth) & active
-            else:
-                t, prim = wave.trace(slot, live, best_t, False, depth)
-                f = (prim >= 0) & active
-                upd = f & (t < best_t)
-                best_t = torch.where(upd, t, best_t)
-                best_prim = torch.where(upd, prim, best_prim)
-            found = found | f
-            processed[:, d_id] |= active
-    return best_t, best_prim, found, processed, traced, spec
+def epoch_batch(state, slots, trace_slot, speculate, max_epochs=None,
+                any_hit=False, spec_bound=None):
+    """Trace epochs over the resident slots [(domain id, pages), ...].
 
-
-def _zero_counts(state):
-    z = torch.zeros((), dtype=torch.int64, device=state.o.device)
-    return z, z
-
-
-def epoch_step(state, slots, speculate, leaf_size):
-    """Trace one epoch over the resident slots [(domain id, BVH pages), ...]
-    by walking each domain's BVH (the jnp backend).  Occlusion rays take the
-    nearest walk too, as in the reference.  Returns (state, traced,
-    speculated) with the counts as device tensors."""
-    need = needed_mask(state)
-    nearest, has_need, _ = _nearest_needed(need, state.entry_t)
-    traced, spec = _zero_counts(state)
-    bt, bp, bu, bv, found = (state.best_t, state.best_prim, state.best_u,
-                             state.best_v, state.found)
-    processed = state.processed.clone()
-    for d_id, slot in slots:
-        at_nearest = (nearest == d_id) & has_need
-        active = need[:, d_id]
-        if not speculate:
-            active = active & at_nearest
-        traced = traced + active.sum()
-        spec = spec + (active & ~at_nearest).sum()
-        dbvh = DeviceBVH(**{k: slot[k] for k in BVH_FIELDS}, leaf_size=leaf_size)
-        window = torch.where(active, bt, torch.zeros_like(bt))
-        t, p, u, v, f = trace_domain(dbvh, state.o, state.d, state.tmin, window)
-        upd = f & (t < bt) & active
-        bt = torch.where(upd, t, bt)
-        bp = torch.where(upd, p, bp)
-        bu = torch.where(upd, u, bu)
-        bv = torch.where(upd, v, bv)
-        found = found | (f & active)
-        processed[:, d_id] |= active
-    state = dataclasses.replace(state, best_t=bt, best_prim=bp, best_u=bu,
-                                best_v=bv, found=found, processed=processed)
-    return state, traced, spec
-
-
-def epoch_step_cluster(state, slots, speculate, depth):
-    """Trace one epoch over the resident slots [(domain id, pages), ...]
-    with the CUDA slot kernel.  Occlusion rays use the nearest kernel with
-    zero windows on found lanes, as the reference's epoch step does.
-    Returns (state, traced, speculated) with the counts as device tensors."""
-    need = needed_mask(state)
-    nearest, has_need, _ = _nearest_needed(need, state.entry_t)
-    wave = _Wave(state)
-    carry = (state.best_t, state.best_prim, state.found,
-             state.processed.clone(), *_zero_counts(state))
-    bt, bp, found, processed, traced, spec = _trace_slots(
-        state, wave, slots, need, nearest, has_need, speculate, False, depth,
-        carry)
-    state = dataclasses.replace(state, best_t=bt, best_prim=bp, found=found,
-                                processed=processed)
-    return state, traced, spec
-
-
-def epoch_batch_cluster(state, slots, speculate, max_epochs, depth,
-                        any_hit=False, spec_bound=None):
-    """Run epochs until no ray needs a RESIDENT domain (or max_epochs).
-
-    slots: [(domain id, pages), ...].  any_hit=True runs the any-hit kernel
-    (occlusion wavefronts).  spec_bound=k (with speculate) traces only each
-    ray's k nearest needed domains per epoch.  Reads one flag per epoch.
-    Returns (state, epochs, traced, speculated, remaining): epochs an int,
-    the counts device tensors, remaining whether resident work is left
-    (epochs == max_epochs alone is not a failure)."""
-    n_dom = state.entry_t.shape[1]
-    resident = torch.zeros(n_dom, dtype=torch.bool, device=state.o.device)
-    resident[[d for d, _ in slots]] = True
-    wave = _Wave(state)
-
-    def derive(best_t, found, processed):
-        need = _needed(state.entry_t, processed, best_t, found, state.occ_mode)
-        if spec_bound is not None and speculate:
-            ent = torch.where(need, state.entry_t,
-                              torch.full_like(state.entry_t, np.inf))
-            k = min(spec_bound, n_dom) - 1
-            thr = torch.sort(ent, dim=1).values[:, k]
-            need = need & (state.entry_t <= thr[:, None])
-        nearest, has_need, _ = _nearest_needed(need, state.entry_t)
-        if speculate:
-            more = (need & resident[None, :]).any()
-        else:
-            more = (has_need & resident[nearest]).any()
-        return need, nearest, has_need, more
-
-    carry = (state.best_t, state.best_prim, state.found,
-             state.processed.clone(), *_zero_counts(state))
-    epochs = 0
+    trace_slot(slot, active, live, best_t, any_hit) is the backend's trace
+    of one slot: occluded (N,) bool for any_hit, else (hit flags, {state
+    field: value}) to keep where the hit is nearer.  max_epochs=None runs
+    exactly one epoch and reads nothing; else epochs run until no ray needs
+    a resident domain (one flag read an epoch) or max_epochs.  Returns
+    (state, epochs, traced, speculated, more): epochs an int, the counts
+    device tensors, more whether resident work is left (None after the one
+    epoch; epochs == max_epochs alone is not a failure)."""
+    resident = None
+    if max_epochs is not None:
+        resident = torch.zeros(state.entry_t.shape[1], dtype=torch.bool,
+                               device=state.o.device)
+        resident[[d for d, _ in slots]] = True
+    best = {k: getattr(state, k)
+            for k in ("best_t", "best_prim", "best_u", "best_v")}
+    found, processed = state.found, state.processed.clone()
+    traced = spec = torch.zeros((), dtype=torch.int64, device=state.o.device)
+    epochs, more = 0, None
     while True:
-        need, nearest, has_need, more = derive(carry[0], carry[2], carry[3])
-        with trace.sync("more"):
-            more = bool(more)
-        if epochs >= max_epochs or not more:
-            break
-        carry = _trace_slots(state, wave, slots, need, nearest, has_need,
-                             speculate, any_hit, depth, carry)
+        need, nearest, has_need = _derive(state, best["best_t"], found,
+                                          processed, speculate, spec_bound)
+        if resident is not None:
+            if speculate:
+                more = (need & resident[None, :]).any()
+            else:
+                more = (has_need & resident[nearest]).any()
+            with trace.sync("more"):
+                more = bool(more)
+            if epochs >= max_epochs or not more:
+                break
+        for d_id, slot in slots:
+            with trace.span("spray.sched.slot"):
+                at_nearest = (nearest == d_id) & has_need
+                active = need[:, d_id]
+                if not speculate:
+                    active = active & at_nearest
+                traced = traced + active.sum()
+                spec = spec + (active & ~at_nearest).sum()
+                live = active & ~found if state.occ_mode else active
+                if any_hit:
+                    f = trace_slot(slot, active, live, best["best_t"],
+                                   True) & active
+                else:
+                    f, hit = trace_slot(slot, active, live, best["best_t"],
+                                        False)
+                    f = f & active
+                    upd = f & (hit["best_t"] < best["best_t"])
+                    best.update({k: torch.where(upd, v, best[k])
+                                 for k, v in hit.items()})
+                found = found | f
+                processed[:, d_id] |= active
         epochs += 1
-    bt, bp, found, processed, traced, spec = carry
-    state = dataclasses.replace(state, best_t=bt, best_prim=bp, found=found,
+        if resident is None:
+            break
+    state = dataclasses.replace(state, **best, found=found,
                                 processed=processed)
     return state, epochs, traced, spec, more
 
@@ -362,7 +267,6 @@ class OOCIntersector:
                 aabb_lo=torch.as_tensor(dset.aabb_lo, device=device),
                 aabb_hi=torch.as_tensor(dset.aabb_hi, device=device),
                 leaf_size=dset.leaf_size)
-            self.leaf_size = dset.leaf_size
             host = {k: getattr(dset, k) for k in BVH_FIELDS}
         self.host_dset = dset
         # host pages: pinned once on the card's host, sliced per domain
@@ -398,12 +302,11 @@ class OOCIntersector:
         # and work counters; the newest EPOCH_LOG_ROWS, so that a
         # long-lived intersector holds a bounded log
         self.epoch_log = collections.deque(maxlen=EPOCH_LOG_ROWS)
-        self._n_domains_actual = self.dset.num_domains
         # every domain fits the slots: the whole trace is one batch
-        self.all_resident = (self.device_batched
-                             and self._n_domains_actual <= self.sched_width)
+        n_dom = self.dset.num_domains
+        self.all_resident = self.device_batched and n_dom <= self.sched_width
         if self.all_resident:
-            ids = list(range(self._n_domains_actual))
+            ids = list(range(n_dom))
             self._slots_all = list(zip(ids, self.residency.acquire(ids)))
 
     def _absorb(self, epochs, traced, spec, entry):
@@ -411,19 +314,32 @@ class OOCIntersector:
         self.stats.rays_traced += traced
         self.stats.rays_speculated += spec
         self.epoch_log.append({
-            **entry, "traced": traced, "speculated": spec,
+            **{k: v for k, v in entry.items() if v is not None},
+            "traced": traced, "speculated": spec,
             "loads": self.residency.loads, "hits": self.residency.hits,
             "prefetches": self.residency.prefetches,
         })
 
-    def _sync_residency_stats(self):
-        self.stats.domain_loads = self.residency.loads
-        self.stats.cache_hits = self.residency.hits
-        self.stats.prefetches = self.residency.prefetches
-
-    def _schedule(self, counts, sched):
-        """(domain id, pages) slots: the scheduled domains, plus, when
-        speculating, resident domains with queued rays (free extra work)."""
+    def _schedule(self, state):
+        """(counts, scheduled, slots) of the next batch from one read of the
+        queue counts, with the lookahead's uploads started; scheduled is
+        empty when no ray is queued.  slots: (domain id, pages) of the
+        scheduled domains plus, when speculating, resident domains with
+        queued rays (free extra work)."""
+        # batched: the next batch is predicted from each ray's
+        # second-nearest needed domain; per-epoch: from the current queues
+        second = self.lookahead and self.device_batched
+        with trace.span("spray.sched.counts"):
+            counts = queue_counts(state)
+            if second:
+                counts = torch.stack([counts, second_queue_counts(state)])
+            with trace.sync("counts"):
+                counts = counts.cpu().numpy()
+        counts, predicted = (counts[0], counts[1]) if second else (counts,
+                                                                   counts)
+        sched = schedule_top_k(counts, self.sched_width)
+        if not sched:
+            return counts, sched, []
         slots = list(zip(sched, self.residency.acquire(sched)))
         if self.speculate:
             for d in self.residency.resident_ids:
@@ -431,128 +347,97 @@ class OOCIntersector:
                     break
                 if d not in sched and counts[d] > 0:
                     slots.append((int(d), self.residency.peek(d)))
-        return slots
-
-    def _run_epochs_all_resident(self, state, any_hit):
-        """All domains resident: the entire trace is one batch."""
-        with trace.span("spray.sched.epochs"):
-            state, epochs, traced, spec, remaining = epoch_batch_cluster(
-                state, self._slots_all, self.speculate, self.max_epochs,
-                self.depth, any_hit=any_hit, spec_bound=self.spec_bound)
-        if remaining:
-            raise RuntimeError("epoch loop failed to converge (max_epochs)")
-        with trace.sync("traced"):
-            traced, spec = torch.stack([traced, spec]).tolist()
-        self._absorb(epochs, traced, spec, {
-            "epoch": self.stats.epochs + epochs,
-            "scheduled": list(range(self._n_domains_actual)),
-            "batch_epochs": epochs,
-        })
-        self._sync_residency_stats()
-        return state
-
-    def _run_epochs_batched(self, state, any_hit=False):
-        """One host round trip per residency change: read the queue counts,
-        schedule and upload the top-K domains, prefetch the predicted next
-        batch into the reserve, then run epochs until no resident domain
-        has work."""
-        k = self.sched_width
-        for _ in range(self.max_epochs):
-            with trace.span("spray.sched.batch"):
-                with trace.span("spray.sched.counts"):
-                    if self.lookahead:
-                        both = torch.stack([queue_counts(state),
-                                            second_queue_counts(state)])
-                        with trace.sync("counts"):
-                            both = both.cpu().numpy()
-                        counts, counts_next = both[0], both[1]
-                    else:
-                        counts = queue_counts(state)
-                        with trace.sync("counts"):
-                            counts = counts.cpu().numpy()
-                if counts.sum() == 0:
-                    break
-                sched = schedule_top_k(counts, k)
-                slots = self._schedule(counts, sched)
+        if self.lookahead:
+            # the predicted queues, then current-queue order
+            with trace.span("spray.sched.lookahead"):
                 ids = [d for d, _ in slots]
-                if self.lookahead:
-                    # the next batch from each ray's second-nearest needed
-                    # domain, then current-queue order
-                    with trace.span("spray.sched.lookahead"):
-                        order = np.argsort(-counts_next, kind="stable")
-                        nxt = [int(d) for d in order
-                               if counts_next[d] > 0 and int(d) not in ids]
-                        nxt += [int(d)
-                                for d in np.argsort(-counts, kind="stable")
-                                if counts[d] > 0 and int(d) not in ids
-                                and int(d) not in nxt]
-                        self.residency.prefetch(nxt[:self.reserve],
-                                                pinned=sched)
+                nxt = [int(d) for d in np.argsort(-predicted, kind="stable")
+                       if predicted[d] > 0 and int(d) not in ids]
+                nxt += [int(d) for d in np.argsort(-counts, kind="stable")
+                        if counts[d] > 0 and int(d) not in ids
+                        and int(d) not in nxt]
+                self.residency.prefetch(nxt[:self.reserve], pinned=sched)
+        return counts, sched, slots
+
+    def _slot_trace(self, state):
+        """The backend's trace of one resident slot (`epoch_batch`'s
+        trace_slot) for this batch's wavefront."""
+        if self.backend == "cluster":
+            wave = PageWave(state.o, state.d, state.tmin, state.best_t)
+
+            def trace_page(slot, active, live, best_t, any_hit):
+                out = wave.trace(slot, live, best_t, any_hit, self.depth)
+                if any_hit:
+                    return out
+                t, prim = out
+                return prim >= 0, {"best_t": t, "best_prim": prim}
+            return trace_page
+
+        def walk(slot, active, live, best_t, any_hit):
+            # the nearest walk over each active ray's window, for occlusion
+            # rays too, as the reference's epoch step does
+            window = torch.where(active, best_t, torch.zeros_like(best_t))
+            t, p, u, v, f = trace_domain(self.dset.domain_bvh(slot), state.o,
+                                         state.d, state.tmin, window)
+            return f, {"best_t": t, "best_prim": p, "best_u": u, "best_v": v}
+        return walk
+
+    def _run_epochs(self, state, any_hit=False):
+        """The scheduler's host loop.  A batch reads the queue counts,
+        schedules the K largest queues, starts the lookahead's uploads, runs
+        epochs over the resident slots, reads the work counts and logs a
+        row.  The modes are data, not code paths:
+          - all-resident (every domain fits the slots): one batch of every
+            domain, no counts read, no batch spans; work left raises;
+          - batched: epochs until no resident domain has work, bounded
+            speculation, the any-hit kernel for occlusion;
+          - per-epoch (device_batched=False, and the jnp backend): one epoch
+            a batch, no flag read, the nearest trace for occlusion, as in
+            the reference's epoch step."""
+        batched = self.device_batched
+        span = ((lambda name: contextlib.nullcontext()) if self.all_resident
+                else trace.span)
+        for _ in range(1 if self.all_resident else self.max_epochs):
+            with span("spray.sched.batch"):
+                if self.all_resident:
+                    counts, slots = None, self._slots_all
+                    sched = [d for d, _ in slots]
+                else:
+                    counts, sched, slots = self._schedule(state)
+                    if not sched:
+                        break
                 with trace.span("spray.sched.epochs"):
-                    state, epochs, traced, spec, _ = epoch_batch_cluster(
-                        state, slots, self.speculate, self.max_epochs,
-                        self.depth, any_hit=any_hit,
-                        spec_bound=self.spec_bound)
-                if epochs == 0:
+                    state, epochs, traced, spec, more = epoch_batch(
+                        state, slots, self._slot_trace(state), self.speculate,
+                        self.max_epochs if batched else None,
+                        any_hit=any_hit and batched,
+                        spec_bound=self.spec_bound if batched else None)
+                if self.all_resident and more:
+                    raise RuntimeError(
+                        "epoch loop failed to converge (max_epochs)")
+                if counts is not None and epochs == 0:
                     raise RuntimeError(
                         "batched epoch loop made no progress (scheduled "
                         "domains had no resident work)")
                 with trace.sync("traced"):
                     traced, spec = torch.stack([traced, spec]).tolist()
-                with trace.span("spray.sched.absorb"):
+                with span("spray.sched.absorb"):
+                    # a mode logs no key it has no value for (None)
                     self._absorb(epochs, traced, spec, {
                         "epoch": self.stats.epochs + epochs,
-                        "queued": int(counts.sum()), "scheduled": sched,
-                        "resident_extra": len(ids) - len(sched),
-                        "batch_epochs": epochs,
+                        "queued": None if counts is None else int(counts.sum()),
+                        "scheduled": sched,
+                        "resident_extra": (None if counts is None
+                                           else len(slots) - len(sched)),
+                        "batch_epochs": epochs if batched else None,
                     })
+            if self.all_resident:
+                break
         else:
             raise RuntimeError("epoch loop failed to converge (max_epochs)")
-        self._sync_residency_stats()
-        return state
-
-    def _run_epochs(self, state, any_hit=False):
-        if self.all_resident:
-            return self._run_epochs_all_resident(state, any_hit)
-        if self.device_batched:
-            return self._run_epochs_batched(state, any_hit)
-        for _ in range(self.max_epochs):
-            with trace.span("spray.sched.batch"):
-                with trace.span("spray.sched.counts"):
-                    counts = queue_counts(state)
-                    with trace.sync("counts"):
-                        counts = counts.cpu().numpy()
-                sched = schedule_top_k(counts, self.sched_width)
-                if not sched:
-                    break
-                slots = self._schedule(counts, sched)
-                if self.lookahead:
-                    # the next epoch = next-biggest queues not resident now
-                    with trace.span("spray.sched.lookahead"):
-                        order = np.argsort(-counts, kind="stable")
-                        ids = [d for d, _ in slots]
-                        nxt = [int(d) for d in order
-                               if counts[d] > 0 and int(d) not in ids]
-                        self.residency.prefetch(nxt[:self.reserve],
-                                                pinned=sched)
-                with trace.span("spray.sched.epochs"):
-                    if self.backend == "cluster":
-                        state, traced, spec = epoch_step_cluster(
-                            state, slots, self.speculate, self.depth)
-                    else:
-                        state, traced, spec = epoch_step(
-                            state, slots, self.speculate, self.leaf_size)
-                with trace.sync("traced"):
-                    traced, spec = torch.stack([traced, spec]).tolist()
-                with trace.span("spray.sched.absorb"):
-                    self._absorb(1, traced, spec, {
-                        "epoch": self.stats.epochs + 1,
-                        "queued": int(counts.sum()), "scheduled": sched,
-                        "resident_extra": len(slots) - len(sched),
-                    })
-        else:
-            raise RuntimeError("epoch loop failed to converge (max_epochs)")
-        self._sync_residency_stats()
+        self.stats.domain_loads = self.residency.loads
+        self.stats.cache_hits = self.residency.hits
+        self.stats.prefetches = self.residency.prefetches
         return state
 
     def _wavefront_perm(self, o, d, tmax):

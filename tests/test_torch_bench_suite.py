@@ -22,6 +22,7 @@ cut to one rank on a small scene and the JSON written to a temporary file.
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -178,8 +179,11 @@ ARGS = ["--device", "cpu", "--suite", "--blobs", "8", "--tris-per-blob", "160",
 
 
 def _entry(path, mode):
+    # one torch thread: the 16x16 frames are too small to share, and under
+    # several test workers a thread pool a process mostly waits on itself
     return subprocess.run([sys.executable, "-c", ENTRY, str(path), mode, *ARGS],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+                          cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
 
 
 def test_row_keys_are_the_reference_suites():

@@ -15,12 +15,14 @@ from spray_tpu.domains.partition import partition_scene as j_partition
 from spray_tpu.io.scenes import wisp_cloud
 from spray_tpu.kernels.multidomain import build_cluster_domains as j_pages
 from spray_tpu.kernels.traverse import stack_w_pages
+from spray_tpu.sched.epochs import EpochState as JState
+from spray_tpu.sched.epochs import needed_mask as j_needed_mask
 from spray_tpu_torch.core.camera import make_camera
 from spray_tpu_torch.dist import epochs as tep
 from spray_tpu_torch.dist import rayshard as trs
 from spray_tpu_torch.interop import scene_from_arrays
 from spray_tpu_torch.kernels import traverse
-from spray_tpu_torch.sched.multidomain import BVH_FIELDS
+from spray_tpu_torch.sched.multidomain import BVH_FIELDS, nearest_needed, needed
 
 SCENE = wisp_cloud(n_blobs=8, tris_per_blob=80, extent=4.0, seed=11)
 TSCENE = scene_from_arrays(SCENE.vertices, SCENE.faces, SCENE.albedo,
@@ -113,6 +115,27 @@ def test_local_trace_cluster_tie_goes_to_the_first_page(pages):
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "anyhit"])
+def test_local_trace_cluster_launches_through_the_wrappers(pages, monkeypatch,
+                                                           any_hit):
+    """One launch a page, looked up on `kernels.traverse` at each call: a
+    recorder installed there (chip_smoke.py's `SlotRecorder`) sees every
+    page, with the window the launch got."""
+    name = "anyhit" if any_hit else "nearest_slot"
+    inner, windows = getattr(traverse, name), []
+
+    def record(order, o, d, tmin, tmax, *rest, **kw):
+        windows.append(tmax.clone())
+        return inner(order, o, d, tmin, tmax, *rest, **kw)
+
+    monkeypatch.setattr(traverse, name, record)
+    rays = _rays(3, 1e30 if any_hit else np.inf)
+    _port_cluster(pages["all"], rays, any_hit)
+    assert len(windows) == pages["all"]["w"].shape[0]
+    dead = np.concatenate([rays[3] == 0, np.ones(len(windows[0]) - N, bool)])
+    assert all(not w.numpy()[dead].any() for w in windows)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["nearest", "anyhit"])
 def test_local_trace_bvh_matches_reference(any_hit):
     """The "jnp" backend's local trace: per-domain BVH walks in order."""
     dset = j_partition(SCENE, 4, leaf_size=8)
@@ -126,6 +149,65 @@ def test_local_trace_bvh_matches_reference(any_hit):
     _assert_close(ref, got, any_hit)
     if any_hit:  # the prim of the hit that occluded the ray
         np.testing.assert_array_equal(got[1], ref[1])
+
+
+def _rule_inputs(seed):
+    """(entry_t, processed, best_t, found) of 64 rays over 16 domains:
+    entries drawn from four values (exact ties between domains), four rows
+    that overlap nothing (all +inf) and four rows with every domain
+    processed."""
+    rs = np.random.RandomState(seed)
+    entry = rs.choice(np.float32([0.5, 1.0, 2.0, np.inf]), size=(64, 16))
+    entry[:4] = np.inf
+    processed = rs.rand(64, 16) < 0.3
+    processed[4:8] = True
+    best_t = rs.choice(np.float32([0.75, 1.5, np.inf]), size=64)
+    found = rs.rand(64) < 0.5
+    return entry, processed, best_t, found
+
+
+@pytest.mark.parametrize("occ_mode", [False, True], ids=["nearest", "anyhit"])
+def test_needed_rule_matches_reference(occ_mode):
+    """`needed`, the rule of both the out-of-core scheduler and the in-situ
+    round, equals the reference's `needed_mask`."""
+    entry, processed, best_t, found = _rule_inputs(1)
+    n = entry.shape[0]
+    state = JState(o=None, d=None, tmin=None, best_t=jnp.asarray(best_t),
+                   best_prim=None, best_u=None, best_v=None,
+                   found=jnp.asarray(found), entry_t=jnp.asarray(entry),
+                   processed=jnp.asarray(processed),
+                   occ_mode=jnp.asarray(occ_mode))
+    want = np.asarray(j_needed_mask(state))
+    got = needed(*map(torch.as_tensor, (entry, processed, best_t, found)),
+                 occ_mode).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want[:8].any() and n > want.any(axis=1).sum()
+
+
+def test_round_route_is_the_shared_nearest_rule():
+    """The in-situ round's nearest domain is `nearest_needed`'s: on a mask
+    with exact ties, all-infinite rows and rows that need nothing, it equals
+    the route the round took before (where, argmin, gather, isfinite) and
+    the reference's argmin, the lowest domain id of a tie."""
+    entry, processed, best_t, found = _rule_inputs(2)
+    entry_t = torch.as_tensor(entry)
+    need = needed(entry_t, *map(torch.as_tensor, (processed, best_t, found)),
+                  False)
+    nearest, has, _ = nearest_needed(need, entry_t)
+    masked = torch.where(need, entry_t, float("inf"))
+    before = torch.argmin(masked, dim=1)
+    has_before = torch.isfinite(torch.gather(masked, 1, before[:, None]))[:, 0]
+    np.testing.assert_array_equal(nearest.numpy(), before.numpy())
+    np.testing.assert_array_equal(has.numpy(), has_before.numpy())
+    ref = np.asarray(jnp.argmin(jnp.where(need.numpy(), entry, jnp.inf),
+                                axis=1))
+    np.testing.assert_array_equal(nearest.numpy(), ref)
+    m, tied = need.numpy(), 0
+    for i in np.flatnonzero(m.any(axis=1)):
+        ids = np.flatnonzero(m[i] & (entry[i] == entry[i][m[i]].min()))
+        assert nearest[i] == ids[0]
+        tied += len(ids) > 1
+    assert tied > 5 and not has[:8].any() and has.any()
 
 
 @pytest.mark.parametrize("n_shards", [1, 3, 8])

@@ -55,12 +55,14 @@ def _run_port(seed, **kw):
     return isect, hits, occ
 
 
-@pytest.fixture(scope="module", params=[True, False],
-                ids=["device_batched", "host_driven"])
+@pytest.fixture(scope="module", params=[(4, True), (4, False), (8, True)],
+                ids=["device_batched", "host_driven", "all_resident"])
 def ooc_pair(request):
     """(reference OOC, its hits and occlusion, port OOC, its hits and
-    occlusion) on test_epochs.py's scene: 8 domains through 4 slots."""
-    kw = dict(num_slots=4, speculate=True, device_batched=request.param)
+    occlusion) on test_epochs.py's scene: 8 domains through 4 slots, batched
+    and host-driven, and through 8 slots (all resident: one batch)."""
+    num_slots, batched = request.param
+    kw = dict(num_slots=num_slots, speculate=True, device_batched=batched)
     # Lookahead is on only where the constructor's timed 1 MB upload beats
     # 50 MB/s.  Pass both probes whatever the load of this machine: the
     # reference's clock ticks a nanosecond per reading during its
