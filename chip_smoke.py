@@ -141,10 +141,19 @@ Phases (each prints its lines; any failed check makes the run exit 1):
      each, the images within 1e-6 and rays_traced equal; (c) one
      per-sample frame's calls of nearest_kernel and anyhit_kernel timed
      against their bounds, the last sample's held against the plain
-     versions and walk_reference as in phase 4.
+     versions and walk_reference as in phase 4;
+ 11. the Threefry kernel (threefry_uniform_kernel) on the main path: the
+     phase-4 frame batched at the offline cell's spp 16, bounces 3 and at
+     spp 4, bounces 2: 1 + 2 x bounces launches a frame, the image
+     byte-equal to the same frame drawn by the plain int64 version on the
+     card's tensors, the allocator's peak of both (requested bytes and the
+     blocks that hold them); at spp 16 every draw site of the frame, on
+     the frame's own pixel and sample tensors, bit-equal to the plain
+     version and timed against its bound (integer operations or bytes) and
+     the plain version, and one draw with one sample id for all rays.
 Each path's launch counts are set to 0 just before it runs and read just
 after (phase 9's subprocesses count their own).  The line before the last
-is the kernels JSON (seven kernels); the
+is the kernels JSON (eight kernels); the
 last line is {"ok": true, "device": {...}}.  Needs torch with CUDA and
 nvcc; imports nothing of JAX.
 """
@@ -172,6 +181,10 @@ VISIT_SAMPLE_LEN = 48  # visits kept of each sampled run (the plain version
 # walks a run's visits one rank at a time: a sweep run can hold thousands)
 BRUTE_SAMPLE_BLOCKS = 32  # 256-ray blocks of each brute call held against plain
 TIE_PIXELS = 10000  # one pixel in this many may differ between hit-test formulas
+RNG_DIM_OPS = 77  # integer operations of one Threefry dim (see csrc/rng.cu)
+DISPATCH_S = 33.4e12  # H100 SXM dispatch: 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz
+RNG_REPS = 50  # timed launches of each recorded draw site
+SLEEP_CYCLES = 40_000_000  # a sleep kernel's cycles, ~20 ms: the queue it holds
 FAILED = []
 
 
@@ -692,7 +705,7 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
     ref = render(scene, cam, cfg1, intersector=md8, device=dev)
     ref21 = render(scene, cam, cfg1, intersector=md_isect, device=dev)
     images, res = {}, {}
-    traverse.reset_launches()
+    reset_launches()
     for name, nd, slots, kw in SUITE_VARIANTS:
         r, images[name], oc = suite_row(scene, cam, cfg1, nd, slots, dev,
                                         timed=SCHED_TIMED, pages=pages[nd], **kw)
@@ -706,7 +719,7 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
               f"{r['domain_loads']}, hits {r['cache_hits']}, prefetches "
               f"{r['prefetches']}; lookahead {r['lookahead_active']}, probe "
               f"{r['host_to_hbm_mbps']} MB/s; card {smi}", flush=True)
-    launches = dict(traverse.launches)
+    launches = read_launches()
     print(f"phase5: launches over the five configurations {launches}", flush=True)
     for k in ("nearest_slot_kernel", "anyhit_kernel"):
         check(f"phase5 {k} launched on the scheduler path", launches[k] > 0,
@@ -769,7 +782,6 @@ def phase5_scheduler(torch, np, scene, cam, md_isect, dev, smi):
 def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
     """The training step at full size.  Returns (its numbers, launch counts
     of the path, its step time, loss and gradients for phase 8)."""
-    from spray_tpu_torch.kernels import traverse
     from spray_tpu_torch.render import make_pipeline
 
     pipe = make_pipeline(scene, cam, cfg, backward=True, intersector=isect,
@@ -778,14 +790,14 @@ def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
     t0 = time.perf_counter()
     pipe.run()  # warm-up step
     warm = time.perf_counter() - t0
-    traverse.reset_launches()
+    reset_launches()
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pipe.run()  # synchronises the card before returning
         times.append(time.perf_counter() - t0)
-    launches = dict(traverse.launches)
+    launches = read_launches()
     loss, grads, _ = out
     rays = pipe.rays_traced(out)
     step = min(times)
@@ -813,9 +825,10 @@ def phase6_train(torch, scene, cam, cfg, isect, dev, smi):
 
 
 def kernel_modules():
+    from spray_tpu_torch.core import rng
     from spray_tpu_torch.kernels import binned, brute, traverse
 
-    return traverse, brute, binned
+    return traverse, brute, binned, rng
 
 
 def reset_launches():
@@ -2371,6 +2384,189 @@ def phase10_spp(torch, np, scene, pages, cam, cfg, dev, smi):
     return out
 
 
+def rng_bound_parts(n, k, tensor_sample):
+    """(ms for the operations at the dispatch rate, ms for the bytes at the
+    memory rate) of one threefry_uniform_kernel launch; its bound is the
+    larger.  RNG_DIM_OPS integer operations a dim, each a dispatched
+    instruction (the int32 lanes' 64 a clock an SM is no ceiling: integer
+    adds go to the FMA pipe too); the counters read once (16 bytes a ray,
+    8 with one sample id for all) and k float32 uniforms written once."""
+    nbytes = n * ((16 if tensor_sample else 8) + 4 * k)
+    return n * k * RNG_DIM_OPS / DISPATCH_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+
+
+def device_ms(torch, fn, reps):
+    """(ms a call on the device, ms a call on the host, ms the device slept):
+    reps calls of fn() enqueued behind a sleep kernel, after one warm-up,
+    so that CUDA events time the device's back-to-back work and not the
+    host's enqueue rate (which holds only while the host's enqueue takes
+    less than the sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, host / reps, s.elapsed_time(a)
+
+
+def rng_frame(torch, fn, arrays, record=None):
+    """One frame of `fn`, every kernel's launch count set to 0 just before
+    it and read just after, with the allocator's peak above what was
+    allocated before it (requested bytes, and the blocks that hold them);
+    `record`, a list, gets each `rng.uniforms` call's arguments."""
+    from spray_tpu_torch.core import rng
+
+    plain = rng.uniforms
+
+    def recorded(seed, pixel, sample, dims):
+        record.append((seed, pixel, sample, tuple(dims)))
+        return plain(seed, pixel, sample, dims)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    if record is not None:
+        rng.uniforms = recorded
+    try:
+        img = fn(arrays)
+        torch.cuda.synchronize()
+    finally:
+        rng.uniforms = plain
+    launches = read_launches()
+    st = torch.cuda.memory_stats()
+    peak = {"allocated": st["allocated_bytes.all.peak"] - base,
+            "requested": st.get("requested_bytes.all.peak", base) - base}
+    return img, launches, peak
+
+
+def phase11_rng(torch, np, scene, pages, cam, dev, smi):
+    """threefry_uniform_kernel on the main path: the bench frame through
+    the default multi-domain intersector at the offline cell's spp 16,
+    bounces 3 and at phase 4's spp 4, bounces 2, batched.  Each frame
+    launches the kernel 1 + 2 x bounces times (the jitter pair, then the
+    light triple and the BSDF pair at every bounce but the last), and its
+    image is byte-equal to the same frame with `rng.uniforms` drawing by the
+    plain int64 version on the card's tensors; the allocator's peak of each
+    (requested bytes and the blocks that hold them).  At spp 16 every
+    recorded draw site (the frame's own pixel and sample tensors) is drawn
+    again by the kernel, bit-equal to the plain version dim by dim, and
+    timed (RNG_REPS launches behind a sleep kernel, CUDA events) against
+    its bound and against the plain version; so is one draw with one
+    sample id for all rays."""
+    from spray_tpu_torch.core import rng
+    from spray_tpu_torch.core.config import RenderConfig
+    from spray_tpu_torch.integrators.device import make_render_fn
+    from spray_tpu_torch.integrators.wavefront import make_scene_arrays
+    from spray_tpu_torch.kernels.multidomain import MultiDomainClusterIntersector
+
+    def plain_uniforms(seed, pixel, sample, dims):
+        return tuple(rng._uniform_plain(seed, pixel, sample, d) for d in dims)
+
+    isect = MultiDomainClusterIntersector.from_pages(scene, pages, device=dev)
+    arrays = make_scene_arrays(scene, dev)
+    out = {"card": smi}
+    for spp, bounces, seed in ((16, 3, 2862024101), (4, 2, 0)):
+        tag = f"phase11 spp {spp} bounces {bounces}"
+        cfg = RenderConfig(width=cam.width, height=cam.height, spp=spp,
+                           bounces=bounces, integrator="pt", nee=True, seed=seed)
+        fn = make_render_fn(scene, cam, cfg, isect, device=dev)
+        check(f"{tag}: the batched form", fn.spp_batch is True)
+        fn(arrays)  # warm-up
+        calls = []
+        img, launches, peak = rng_frame(torch, fn, arrays, calls)
+        n_k = launches["threefry_uniform_kernel"]
+        check(f"{tag}: threefry_uniform_kernel launched 1 + 2 x bounces times "
+              "a frame, once a draw site", n_k == 1 + 2 * bounces == len(calls),
+              f"({n_k} launches, {len(calls)} draw sites)")
+        saved, rng.uniforms = rng.uniforms, plain_uniforms
+        try:
+            ref, plain_launches, plain_peak = rng_frame(torch, fn, arrays)
+        finally:
+            rng.uniforms = saved
+        check(f"{tag}: no kernel launch with the plain version",
+              plain_launches["threefry_uniform_kernel"] == 0)
+        check(f"{tag}: image byte-equal to the plain version's",
+              img.cpu().numpy().tobytes() == ref.cpu().numpy().tobytes(),
+              f"(max abs {float((img - ref).abs().max()):.3g})")
+        print(f"{tag}: {n_k} kernel launches a frame; peak above the frame's "
+              f"start, kernel {peak} B, plain {plain_peak} B (requested bytes, "
+              f"allocated blocks); card {smi}", flush=True)
+        row = {"launches": n_k, "frame_peak_bytes": peak,
+               "plain_frame_peak_bytes": plain_peak}
+        del img, ref, fn
+        if spp == 16:
+            row.update(rng_draw_sites(torch, rng, calls, tag, smi))
+        del calls
+        out[f"spp{spp}"] = row
+    return out
+
+
+def rng_draw_sites(torch, rng, calls, tag, smi):
+    """Every recorded draw site of one frame drawn again by the kernel,
+    bit-equal to the plain version dim by dim on the same card tensors, and
+    timed against its bound and the plain version; then the first site's
+    pixels with one sample id for all.  Returns the kernels JSON's numbers."""
+    sites = list(calls)
+    seed0, pix0, _, dims0 = sites[0]
+    sites.append((seed0, pix0, 7, dims0))  # the per-sample form's draw
+    fr = dict.fromkeys(("ms", "host_ms", "plain_ms", "ops_ms", "bytes_ms"), 0.0)
+    err, rows = 0.0, []
+    for i, (seed, pix, smp, dims) in enumerate(sites):
+        n, k, tensor = pix.shape[0], len(dims), isinstance(smp, torch.Tensor)
+        got = rng.uniforms(seed, pix, smp, dims)
+        want = [rng._uniform_plain(seed, pix, smp, d) for d in dims]
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        err = max(err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
+        del got, want
+        check(f"{tag} draw site {i} (n {n}, k {k}, "
+              f"{'tensor' if tensor else 'one'} sample) bit-equal to the plain "
+              "version", same)
+        ms, host_ms, slept = device_ms(
+            torch, lambda: rng.uniforms(seed, pix, smp, dims), RNG_REPS)
+        check(f"{tag} draw site {i}: the device timed behind its queue",
+              host_ms * RNG_REPS < slept,
+              f"(enqueue {host_ms * RNG_REPS:.2f} ms, sleep {slept:.2f} ms)")
+        plain_ms = cuda_ms(torch, lambda: [rng._uniform_plain(seed, pix, smp, d)
+                                           for d in dims], 2)
+        t_ops, t_bytes = rng_bound_parts(n, k, tensor)
+        bms, by = bound_of(t_ops, t_bytes)
+        rows.append({"n": n, "k": k, "tensor_sample": tensor, "ms": ms,
+                     "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by})
+        print(f"{tag} draw site {i}: n {n}, k {k}, "
+              f"{'tensor' if tensor else 'one'} sample: {ms:.4f} ms a launch "
+              f"on the device ({bms / ms:.1%} of bound {bms:.4f} ms, {by}), "
+              f"{host_ms:.4f} ms a call on the host, vs plain {plain_ms:.3f} "
+              f"ms; card {smi}", flush=True)
+        if i < len(calls):
+            fr["ms"] += ms
+            fr["host_ms"] += host_ms
+            fr["plain_ms"] += plain_ms
+            fr["ops_ms"] += t_ops
+            fr["bytes_ms"] += t_bytes
+    fb, fby = bound_of(fr["ops_ms"], fr["bytes_ms"])
+    k3 = next(r for r in rows if r["k"] == 3 and r["tensor_sample"])
+    print(f"{tag}: threefry_uniform_kernel a frame {fr['ms']:.4f} ms in "
+          f"{len(calls)} launches ({fb / fr['ms']:.1%} of bound {fb:.4f} ms, "
+          f"{fby}; {fr['host_ms']:.4f} ms on the host) vs plain "
+          f"{fr['plain_ms']:.3f} ms; card {smi}", flush=True)
+    return {"frame_ms": fr["ms"], "frame_host_ms": fr["host_ms"],
+            "frame_plain_ms": fr["plain_ms"],
+            "frame_bound_ms": fb, "frame_bound_by": fby,
+            "frame_launches": len(calls), "max_abs_err": err, "sites": rows,
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+            "bound_by": k3["bound_by"], "n": k3["n"]}
+
+
 def main_call_stats(torch, np, traverse, isect, calls, tag, checked=None):
     """The nearest and any-hit calls of one frame through the multi-domain
     intersector `isect`, recorded by Recorder: every call's kernel timed
@@ -2653,14 +2849,14 @@ def main():
     t0 = time.perf_counter()
     img, _ = pipe.run()  # warm-up frame
     print(f"phase4: warm-up frame {time.perf_counter() - t0:.3f} s", flush=True)
-    traverse.reset_launches()
+    reset_launches()
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = pipe.run()  # synchronises the card before returning
         times.append(time.perf_counter() - t0)
-    launches = dict(traverse.launches)
+    launches = read_launches()
     img = out[0]
     rays = pipe.rays_traced(out)
     frame = min(times)
@@ -2746,8 +2942,12 @@ def main():
 
     # ---- phase 10: the form of the frame, chosen by free memory -----------
     p10 = phase10_spp(torch, np, scene, pages, cam, cfg, dev, smi)
-    del pages
     phase_done("phase10 (batched and per-sample frames)")
+
+    # ---- phase 11: the Threefry kernel on the main path ---------------------
+    p11 = phase11_rng(torch, np, scene, pages, cam, dev, smi)
+    del pages
+    phase_done("phase11 (threefry kernel)")
     by_path = {k: {"forward": launches[k], "scheduler": sched_launches[k],
                    "train": train_launches[k],
                    "routed_grid": routed_launches[k],
@@ -2891,6 +3091,28 @@ def main():
                          "frame_bound_ms": c["frame_bound_ms"],
                          "frame_bound_by": c["frame_bound_by"],
                          "frame_launches": c["launches"]}}))
+    r16 = p11["spp16"]
+    kernels.append({
+        "name": "threefry_uniform_kernel", "route": "cuda",
+        "source": "spray_tpu_torch/kernels/csrc/rng.cu",
+        "replaces": "none (the reference's jnp threefry2x32, "
+                    "spray_tpu/core/rng.py:52)",
+        "launches": launches["threefry_uniform_kernel"],
+        "max_abs_err": r16["max_abs_err"], "ms": r16["ms"],
+        "plain_ms": r16["plain_ms"], "bound_ms": r16["bound_ms"],
+        "bound_by": r16["bound_by"], "library_ms": None,
+        "frame_ms": r16["frame_ms"], "frame_plain_ms": r16["frame_plain_ms"],
+        "frame_bound_ms": r16["frame_bound_ms"],
+        "frame_bound_by": r16["frame_bound_by"],
+        "frame_launches": r16["frame_launches"],
+        "sample": f"the light triple's draw site of one spp-16 frame "
+                  f"({r16['n']} rays, K = 3, a sample id a ray)",
+        "frame": "512x512, spp 16, bounces 3: every draw site of one frame, "
+                 "each on its own pixel and sample tensors",
+        "sites": r16["sites"], "launches_by_path": by_path["threefry_uniform_kernel"],
+        "design": "a thread a ray, grid-stride, K dims in registers on "
+                  "native uint32, rows written coalesced",
+    })
     for k in kernels:
         check(f"kernels line: {k['name']} launched on its path", k["launches"] > 0,
               f"({k['launches']})")
@@ -2900,7 +3122,7 @@ def main():
                                      "routed_grid": routed,
                                      "brute": brute_frames},
                       "dist": {k: p8[k] for k in ("rayshard", "insitu", "gate")},
-                      "phase9": p9, "phase10": p10}),
+                      "phase9": p9, "phase10": p10, "phase11": p11}),
           flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -66,10 +66,8 @@ def sample_wavefront(scene_arrays, camera, cfg, intersector, sample_idx,
     n = pixel_ids.shape[0]
     background = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
 
-    jx = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                     rng.dim_id(0, rng.PIXEL_JITTER, 0))
-    jy = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                     rng.dim_id(0, rng.PIXEL_JITTER, 1))
+    jx, jy = rng.uniform2(cfg.seed, pixel_ids, sample_idx, 0,
+                          rng.PIXEL_JITTER)
     with trace.span("spray.glue.camera"):
         o, d = geom.camera_rays(camera, pixel_ids, jx, jy)
 
@@ -149,12 +147,9 @@ def _path_trace(o, d, pixel_ids, sample_idx, albedo, emission, normals, eps,
                 p, nrm = _shade_prep(o, d, hits, normals, eps)
             if nee:
                 with trace.span("spray.glue.nee"):
-                    u_pick = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                                         rng.dim_id(bounce, rng.LIGHT, 0))
-                    lu1 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                                      rng.dim_id(bounce, rng.LIGHT, 1))
-                    lu2 = rng.uniform(cfg.seed, pixel_ids, sample_idx,
-                                      rng.dim_id(bounce, rng.LIGHT, 2))
+                    u_pick, lu1, lu2 = rng.uniforms(
+                        cfg.seed, pixel_ids, sample_idx,
+                        [rng.dim_id(bounce, rng.LIGHT, c) for c in range(3)])
                     with trace.span("spray.glue.light"):
                         y, ny, le, pick_w = _sample_light_point(
                             lights, u_pick, lu1, lu2)
@@ -201,8 +196,7 @@ def _ambient_occlusion(o, d, pixel_ids, sample_idx, albedo, normals, eps,
     vis = torch.zeros(n, dtype=torch.float32, device=dev)
     radius = torch.where(hits.valid, cfg.ao_radius, 0.0).to(torch.float32)
     for k in range(cfg.ao_samples):
-        u1 = rng.uniform(cfg.seed, pixel_ids, sample_idx, rng.dim_id(k, rng.AO, 0))
-        u2 = rng.uniform(cfg.seed, pixel_ids, sample_idx, rng.dim_id(k, rng.AO, 1))
+        u1, u2 = rng.uniform2(cfg.seed, pixel_ids, sample_idx, k, rng.AO)
         ao_d = geom.local_to_world(geom.cosine_hemisphere(u1, u2), nrm)
         occ = intersector.occluded(p, ao_d, radius)
         vis = vis + torch.where(occ, 0.0, 1.0)

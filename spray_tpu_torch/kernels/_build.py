@@ -26,6 +26,8 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "spray_stack_size": [],
     # which: 0 nearest_kernel, 1 anyhit_kernel, 2 nearest_slot_kernel
@@ -61,6 +63,10 @@ _SIGNATURES = {
                             _I, _P, _P, _P],
     # dest, m, ndev, bucket, table (scratch), send, stream
     "spray_route_slots": [_P, _I, _I, _I, _P, _P, _P],
+    # pixel, sample (or NULL), sample_scalar, seed, d0, d1, d2, d3, k, n,
+    # out, stream
+    "spray_threefry_uniform": [_P, _P, _U, _U, _U, _U, _U, _U, _I, _L, _P,
+                               _P],
 }
 
 _libs = {}

@@ -112,7 +112,7 @@ def test_binned_scene_and_brute_table_equal(name):
 LAUNCHERS = ["spray_nearest", "spray_anyhit", "spray_nearest_slot",
              "spray_brute_nearest", "spray_brute_anyhit",
              "spray_binned_nearest", "spray_binned_anyhit",
-             "spray_route_slots"]
+             "spray_route_slots", "spray_threefry_uniform"]
 
 
 @pytest.mark.parametrize("fn", LAUNCHERS)
@@ -120,7 +120,8 @@ def test_ctypes_signature_matches_the_c_launcher(fn):
     """The argtypes bound with ctypes follow the extern "C" launcher's
     parameter list in the CUDA source: a pointer (and the stream) is a
     c_void_p, never an int that would cut a 64-bit address; an int is a
-    c_int; the counts agree."""
+    c_int, a uint32_t a c_uint32 (a seed of 0xFFFFFFFF is not cut to a
+    signed int), a long long a c_longlong; the counts agree."""
     import ctypes
     import re
 
@@ -130,7 +131,9 @@ def test_ctypes_signature_matches_the_c_launcher(fn):
     found = re.findall(r"\nint %s\(([^)]*)\)\s*{" % fn, text)
     assert len(found) == 1, fn
     params = [p.strip() for p in found[0].split(",")]
-    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
-    assert all("*" in p or p.startswith("int ") for p in params), params
+    scalars = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32,
+               "long long": ctypes.c_longlong}
+    want = [ctypes.c_void_p if "*" in p else scalars[p.rsplit(" ", 1)[0]]
+            for p in params]
     assert _build._SIGNATURES[fn] == want
     assert params[-1] == "void* stream"

@@ -11,9 +11,13 @@ from spray_tpu.core import geom as j_geom
 from spray_tpu.core import rng as j_rng
 from spray_tpu.kernels.common import tile_swizzle_order as j_swizzle
 from spray_tpu_torch.core import camera as t_camera
+from spray_tpu_torch.core.config import RenderConfig
 from spray_tpu_torch.core import geom as t_geom
 from spray_tpu_torch.core import rng as t_rng
+from spray_tpu_torch.integrators import wavefront
+from spray_tpu_torch.io.scenes import cornell_box
 from spray_tpu_torch.kernels.common import tile_swizzle_order as t_swizzle
+from spray_tpu_torch.oracle.brute import BruteIntersector
 
 
 def _grid():
@@ -49,6 +53,78 @@ def test_threefry_bits_and_uniform_bit_exact(seed):
                             smp.astype(np.uint32), 9, np)
     got = t_rng.random_bits(seed, pt, torch.as_tensor(smp), 9).numpy()
     np.testing.assert_array_equal(got.astype(np.uint32), ref)
+
+
+UNIFORMS_DIMS = [
+    (t_rng.dim_id(0, t_rng.PIXEL_JITTER, 0),),
+    (t_rng.dim_id(0, t_rng.PIXEL_JITTER, 0), t_rng.dim_id(0, t_rng.PIXEL_JITTER, 1)),
+    tuple(t_rng.dim_id(2, t_rng.LIGHT, c) for c in range(3)),
+    (t_rng.dim_id(7, t_rng.AO, 1), t_rng.dim_id(1, t_rng.BSDF, 0), 9,
+     t_rng.dim_id(0, t_rng.PIXEL_JITTER, 0)),
+]
+
+
+@pytest.mark.parametrize("seed", [0, 5, 0xFFFFFFFF])
+@pytest.mark.parametrize("sample", [0, 65535, "tensor"])
+@pytest.mark.parametrize("dims", UNIFORMS_DIMS, ids=lambda d: f"k{len(d)}")
+def test_uniforms_equal_uniform_and_reference(seed, sample, dims):
+    """`uniforms` (the integrators' entry point) draws, dim by dim, the bits
+    of `uniform` and of the reference's `uniform`."""
+    pix = _grid()
+    pt = torch.as_tensor(pix.astype(np.int64))
+    if sample == "tensor":
+        smp = np.arange(pix.size) % 16
+        s_t, s_j = torch.as_tensor(smp), jnp.asarray(smp.astype(np.uint32))
+    else:
+        s_t, s_j = sample, sample
+    got = t_rng.uniforms(seed, pt, s_t, dims)
+    assert isinstance(got, tuple) and len(got) == len(dims)
+    for row, dim in zip(got, dims):
+        assert row.dtype == torch.float32 and row.shape == pt.shape
+        one = t_rng.uniform(seed, pt, s_t, dim)
+        np.testing.assert_array_equal(row.numpy().view(np.uint32),
+                                      one.numpy().view(np.uint32))
+        uref = np.asarray(j_rng.uniform(
+            seed, jnp.asarray(pix.astype(np.uint32)), s_j, dim, jnp))
+        np.testing.assert_array_equal(row.numpy().view(np.uint32),
+                                      uref.view(np.uint32))
+
+
+@pytest.mark.parametrize("bad", ["int32", "strided", "2d", "five_dims",
+                                 "no_dims", "sample_int32", "sample_shape"])
+def test_uniforms_rejects(bad):
+    """`uniforms` raises on what the kernel does not take, before it looks
+    at the device (so on the CPU too), and counts no launch."""
+    pix = torch.arange(64, dtype=torch.int64)
+    sample, dims = 0, (1, 2)
+    if bad == "int32":
+        pix = pix.to(torch.int32)
+    elif bad == "strided":
+        pix = torch.arange(128, dtype=torch.int64)[::2]
+    elif bad == "2d":
+        pix = pix.reshape(8, 8)
+    elif bad == "five_dims":
+        dims = (0, 1, 2, 3, 4)
+    elif bad == "no_dims":
+        dims = ()
+    elif bad == "sample_int32":
+        sample = torch.zeros(64, dtype=torch.int32)
+    elif bad == "sample_shape":
+        sample = torch.zeros(63, dtype=torch.int64)
+    t_rng.reset_launches()
+    with pytest.raises(ValueError):
+        t_rng.uniforms(5, pix, sample, dims)
+    assert t_rng.launches == {"threefry_uniform_kernel": 0}
+
+
+def test_uniforms_empty_and_no_launch_on_cpu():
+    """N = 0 gives empty rows; the CPU path never counts a kernel launch."""
+    t_rng.reset_launches()
+    rows = t_rng.uniforms(3, torch.zeros(0, dtype=torch.int64), 1, (4, 5, 6))
+    assert [tuple(r.shape) for r in rows] == [(0,)] * 3
+    assert all(r.dtype == torch.float32 for r in rows)
+    t_rng.uniform2(3, torch.arange(8, dtype=torch.int64), 0, 1, t_rng.BSDF)
+    assert t_rng.launches == {"threefry_uniform_kernel": 0}
 
 
 def _unit(rs, n):
@@ -152,3 +228,40 @@ def test_gather_rows_backward_is_order_free(case):
 @pytest.mark.parametrize("wh", [(16, 16), (512, 512), (100, 37)])
 def test_tile_swizzle_order_equal(wh):
     np.testing.assert_array_equal(t_swizzle(*wh), j_swizzle(*wh))
+
+
+@pytest.mark.parametrize("integrator,bounces,calls", [
+    ("pt", 2, 5), ("pt", 3, 7), ("ao", 1, 1 + 3)])
+def test_uniforms_one_call_a_draw_site(integrator, bounces, calls,
+                                       monkeypatch):
+    """A wave calls `uniforms` once a draw site: the jitter pair, then with
+    NEE the light triple and the BSDF pair at every bounce but the last
+    (1 + 2 x bounces, the kernel's launches on the card), or AO's pair a
+    sample; the dims and their order are the reference's."""
+    seen = []
+    plain = t_rng.uniforms
+
+    def counted(seed, pixel, sample, dims):
+        seen.append(tuple(dims))
+        return plain(seed, pixel, sample, dims)
+
+    monkeypatch.setattr(t_rng, "uniforms", counted)
+    scene = cornell_box()
+    cam = t_camera.make_camera(eye=(0.5, 0.5, 2.2), lookat=(0.5, 0.5, 0.0),
+                               up=(0, 1, 0), fov_y_deg=40, width=8, height=8)
+    cfg = RenderConfig(width=8, height=8, spp=1, bounces=bounces,
+                       integrator=integrator, ao_samples=3, seed=4)
+    arrays = wavefront.make_scene_arrays(scene, "cpu")
+    wavefront.sample_wavefront(arrays, cam, cfg,
+                               BruteIntersector(scene, device="cpu"), 0,
+                               torch.arange(64, dtype=torch.int64))
+    assert len(seen) == calls
+    d = t_rng.dim_id
+    assert seen[0] == (d(0, t_rng.PIXEL_JITTER, 0), d(0, t_rng.PIXEL_JITTER, 1))
+    if integrator == "pt":
+        for b in range(bounces):
+            assert seen[1 + 2 * b] == tuple(d(b, t_rng.LIGHT, c) for c in range(3))
+            assert seen[2 + 2 * b] == (d(b, t_rng.BSDF, 0), d(b, t_rng.BSDF, 1))
+    else:
+        assert seen[1:] == [(d(k, t_rng.AO, 0), d(k, t_rng.AO, 1))
+                            for k in range(3)]
