@@ -31,7 +31,6 @@ kept so that the two APIs match): each slot's trace walks the domain's BVH
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import time
 
@@ -388,17 +387,15 @@ class OOCIntersector:
         epochs over the resident slots, reads the work counts and logs a
         row.  The modes are data, not code paths:
           - all-resident (every domain fits the slots): one batch of every
-            domain, no counts read, no batch spans; work left raises;
+            domain, no counts read; work left raises;
           - batched: epochs until no resident domain has work, bounded
             speculation, the any-hit kernel for occlusion;
           - per-epoch (device_batched=False, and the jnp backend): one epoch
             a batch, no flag read, the nearest trace for occlusion, as in
             the reference's epoch step."""
         batched = self.device_batched
-        span = ((lambda name: contextlib.nullcontext()) if self.all_resident
-                else trace.span)
         for _ in range(1 if self.all_resident else self.max_epochs):
-            with span("spray.sched.batch"):
+            with trace.span("spray.sched.batch"):
                 if self.all_resident:
                     counts, slots = None, self._slots_all
                     sched = [d for d, _ in slots]
@@ -421,7 +418,7 @@ class OOCIntersector:
                         "domains had no resident work)")
                 with trace.sync("traced"):
                     traced, spec = torch.stack([traced, spec]).tolist()
-                with span("spray.sched.absorb"):
+                with trace.span("spray.sched.absorb"):
                     # a mode logs no key it has no value for (None)
                     self._absorb(epochs, traced, spec, {
                         "epoch": self.stats.epochs + epochs,
